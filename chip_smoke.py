@@ -17,7 +17,24 @@ a nonzero exit if it fails:
 5. main path: ORB extraction and the tracking step over 20 frames of the
    synthetic bench world at 640x480, 1000 features, 5 levels, re-seeding
    the reference frame where the step asks for a keyframe; checks the
-   launches, poses, feature and match counts and the keyframe timing.
+   launches, poses, feature and match counts and the keyframe timing;
+6. Schur kernel against plain: the Schur point-reduction kernel against
+   its plain PyTorch version (the einsum pair) on random SPD systems at
+   (K, M) = (4, 12), (8, 130), (24, 512), (48, 2048), (256, 8192), and on
+   zeroed point columns; times it (CUDA graph and eager), the plain
+   version and one ``torch.einsum`` call at the local-BA and global-BA
+   shapes;
+7. mapping: the synchronous SLAM loop, ``SlamSystem(cfg,
+   enable_loops=False)`` at the bench configuration with the default
+   ``Capacity``, over 60 frames of the bench world with noisy odometry,
+   for 3 RANSAC draws: keyframe insertion, pruning and local BA (the
+   Schur kernel, at (K, M) = (48, 2048)) on the card. Checks the launches
+   of both kernels, that every local BA descends, finite poses, the
+   keyframe count and ATE against the JAX package's spread, and the
+   Schur kernel on the damped system of a real local BA of the run.
+
+The Schur kernel is held, on every system, to its plain version evaluated
+in f64 on the same f32 inputs (see ``schur_check``).
 
 It prints the kernels' JSON line before the last line, and last
 ``{"ok": true, "device": {...}}``. Nothing of JAX is imported.
@@ -33,12 +50,16 @@ import time
 import numpy as np
 import torch
 
-from se2lam_tpu_torch import tracking
+from se2lam_tpu_torch import localmap, tracking
 from se2lam_tpu_torch.entry import default_cfg, entry
 from se2lam_tpu_torch.frontend import fast_nms as K1
 from se2lam_tpu_torch.frontend.orb import OrbExtractor
 from se2lam_tpu_torch.io.synthetic import SyntheticWorld
+from se2lam_tpu_torch.io.trajectory import ate_se2
 from se2lam_tpu_torch.kernels import build_all, load_library
+from se2lam_tpu_torch.solver import ba
+from se2lam_tpu_torch.solver import schur as K3
+from se2lam_tpu_torch.system import SlamSystem
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and f32 (non-tensor) op/s
 HBM_BYTES_PER_S = 3.35e12
@@ -52,6 +73,21 @@ FAST_OPS_PER_PX = 16 + 16 + 32 + 32 + 30 + 1 + 64 + 2 + 2 * 11
 T_HIGH, T_LOW = 20.0, 7.0
 N_FRAMES = 20
 N_DRAWS = 8        # RANSAC draws of the main path
+# Schur kernel: the JAX package's own kernel tolerance
+# (tests/test_pallas_schur.py), relative to the largest entry
+SCHUR_REL_TOL = 1e-5
+SCHUR_SHAPES = [(4, 12), (8, 130), (24, 512), (48, 2048), (256, 8192)]
+LOCAL_BA_SHAPE = (48, 2048)     # (local_kfs + local_ref_kfs, local_mps), default Capacity
+GLOBAL_BA_SHAPE = (256, 8192)   # (max_kfs, max_mps): the loop-closing slice's joint BA
+MAP_FRAMES = 60
+MAP_DRAWS = 3      # RANSAC draws of the SLAM loop
+ODO_NOISE = (0.004, 0.002, 0.002)   # per-step odometry noise of tests/test_system.py
+# The JAX package's spread on these frames (examples/slam_draws.py, CPU,
+# 6 draws): 4 keyframes in every draw, live ATE 0.00938-0.01520 m. A draw
+# on the card passes with exactly that keyframe count and an ATE no worse
+# than 1.5x the worst JAX draw.
+JAX_KF = 4
+JAX_ATE_MAX = 0.015198489440248385
 
 
 def log(msg):
@@ -303,6 +339,197 @@ def phase_main_path(cfg, oc, extract, world, gt):
     return launches
 
 
+def spd_inverses(g, M, dev):
+    """Inverses of M random SPD 3x3 blocks, contiguous, on ``dev``."""
+    L = torch.randn((M, 3, 3), generator=g)
+    return torch.linalg.inv(L @ L.transpose(-1, -2) + torch.eye(3)).contiguous().to(dev)
+
+
+def schur_check(Hpx, Hxx_inv, what):
+    """The kernel against the plain version on the same inputs, evaluated
+    in f64: within SCHUR_REL_TOL of its largest entry. On a real local BA,
+    Hxx⁻¹ reaches ~1e6 along weakly observed depth directions whose large
+    products cancel in S, so any f32 result, the f32 plain version's
+    included, sits a few 1e-6 of max|S| from the exact one; two f32
+    results then differ by up to their sum, which is why the reference is
+    the exact one. Returns (max |S − S_plain|, relative error)."""
+    got = K3.point_reduction(Hpx, Hxx_inv)
+    want = K3.point_reduction_plain(Hpx.double(), Hxx_inv.double())
+    torch.cuda.synchronize()
+    err = float((got.double() - want).abs().max())
+    rel = err / max(float(want.abs().max()), 1e-30)
+    if not math.isfinite(rel) or rel > SCHUR_REL_TOL:
+        raise SystemExit(f"chip_smoke: Schur kernel differs from plain on {what}: "
+                         f"relative error {rel} > {SCHUR_REL_TOL}")
+    return err, rel
+
+
+def schur_bound(K, M):
+    """(bound ms, bound_by): the f32 operations the function needs, T and
+    one triangle of the symmetric S, 2·M·(9·3K + 3·3K(3K+1)/2), over
+    67 TFLOP/s, against each input read once and S written once over
+    3.35 TB/s. The kernel computes the full S, about twice that work."""
+    R = 3 * K
+    ops = 2 * M * (9 * R + 3 * R * (R + 1) // 2)
+    nbytes = 4 * (9 * K * M + 9 * M + 9 * K * K)
+    ops_s, bytes_s = ops / F32_OPS_PER_S, nbytes / HBM_BYTES_PER_S
+    return 1e3 * max(ops_s, bytes_s), "operations" if ops_s >= bytes_s else "bytes"
+
+
+def phase_schur():
+    """The Schur kernel against its plain version at every listed shape
+    and on zeroed point columns, then its times."""
+    dev = torch.device("cuda")
+    g = torch.Generator().manual_seed(0)
+    errs = {}
+    inputs = {}
+    for K, M in SCHUR_SHAPES:
+        Hpx = torch.randn((K, 3, M, 3), generator=g).to(dev)
+        Hxx_inv = spd_inverses(g, M, dev)
+        errs[(K, M)] = schur_check(Hpx, Hxx_inv, f"random SPD (K, M) = ({K}, {M})")
+        inputs[(K, M)] = (Hpx, Hxx_inv)
+    # zeroed point columns (invalid points) add exact zeros
+    Hpx, Hxx_inv = inputs[(8, 130)]
+    Hz = Hpx.clone()
+    Hz[:, :, 65:] = 0.0
+    full = K3.point_reduction(Hz, Hxx_inv)
+    half = K3.point_reduction(Hz[:, :, :65].contiguous(), Hxx_inv[:65].contiguous())
+    torch.cuda.synchronize()
+    if not torch.equal(full, half):
+        raise SystemExit("chip_smoke: zeroed point columns changed the Schur kernel's result")
+    log("kernel: Schur within " + json.dumps(
+        {f"{K}x{M}": rel for (K, M), (_, rel) in errs.items()}) + " of plain (f64); zero columns exact")
+
+    times = {}
+    for K, M in (LOCAL_BA_SHAPE, GLOBAL_BA_SHAPE):
+        Hpx, Hxx_inv = inputs[(K, M)]
+        bound, by = schur_bound(K, M)
+        times[(K, M)] = dict(
+            ms=graph_ms(lambda: K3.point_reduction(Hpx, Hxx_inv), inner=10, reps=20),
+            eager_ms=events_ms(lambda: K3.point_reduction(Hpx, Hxx_inv), reps=20),
+            plain_ms=graph_ms(lambda: K3.point_reduction_plain(Hpx, Hxx_inv), inner=10, reps=20),
+            plain_eager_ms=events_ms(lambda: K3.point_reduction_plain(Hpx, Hxx_inv), reps=20),
+            library_ms=events_ms(lambda: torch.einsum("kamb,mbd,lcmd->klac", Hpx, Hxx_inv, Hpx),
+                                 reps=20),
+            bound_ms=bound, bound_by=by, max_abs_err=errs[(K, M)][0],
+            rel_err=errs[(K, M)][1],
+        )
+        log(f"kernel times Schur (K, M) = ({K}, {M}) (ms): " + json.dumps(times[(K, M)]))
+    return times
+
+
+class StageTimer:
+    """CUDA events around every call of a module-level function, read
+    after the run (the wrapper adds no host synchronisation)."""
+
+    def __init__(self, module, name):
+        self.module, self.name = module, name
+        self.orig = getattr(module, name)
+        self.events = []
+
+    def __enter__(self):
+        def timed(*args, **kw):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            out = self.orig(*args, **kw)
+            b.record()
+            self.events.append((a, b))
+            return out
+
+        setattr(self.module, self.name, timed)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.orig)
+
+    def ms(self):
+        torch.cuda.synchronize()
+        return [a.elapsed_time(b) for a, b in self.events]
+
+
+def run_slam(cfg, imgs, odos, gt, seed):
+    """One pass of the SLAM loop with RANSAC draws seeded ``seed``."""
+    slam = SlamSystem(cfg, enable_loops=False,
+                      generator=torch.Generator(device="cuda").manual_seed(seed))
+    slam.log_ba = True
+    with StageTimer(tracking, "track_frame") as tr, \
+            StageTimer(localmap, "insert_and_optimize") as ins, \
+            StageTimer(localmap, "run_local_ba") as lba:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for img, odo in zip(imgs, odos):
+            slam.process(img, odo)
+        torch.cuda.synchronize()
+        loop_s = time.perf_counter() - t0
+        track_ms, insert_ms, ba_ms = tr.ms(), ins.ms(), lba.ms()
+    est = np.asarray([p for _, p in slam.trajectory])
+    cor = slam.corrected_trajectory()[:, 1:3]
+    for rec in slam.ba_log:
+        if not rec["chi2"] <= rec["chi2_init"]:
+            raise SystemExit(f"chip_smoke: seed {seed}: local BA did not descend: {rec}")
+    poses = slam.ms.kf_pose[: slam.n_keyframes()]
+    if not np.isfinite(est).all() or not bool(torch.isfinite(poses).all()):
+        raise SystemExit(f"chip_smoke: seed {seed}: a pose is not finite")
+    return slam, dict(
+        seed=seed, kf_frames=slam.kf_frame_ids, n_kf=len(slam.kf_frame_ids),
+        n_local_ba=slam.n_local_ba, n_mp=slam.n_map_points(),
+        ate=ate_se2(est[:, :2], gt[:, :2])[0], ate_corrected=ate_se2(cor, gt[:, :2])[0],
+        chi2_ratio_max=max(r["chi2"] / r["chi2_init"] for r in slam.ba_log),
+        frames_per_s=len(imgs) / loop_s, loop_s=loop_s,
+        track_ms_per_frame=float(np.median(track_ms)),
+        insert_ms_per_kf=float(np.median(insert_ms)),
+        local_ba_ms_per_kf=float(np.median(ba_ms)),
+    )
+
+
+def within_jax_spread_slam(run):
+    """The rule stated at JAX_KF/JAX_ATE_MAX."""
+    return run["n_kf"] == JAX_KF and run["ate"] <= 1.5 * JAX_ATE_MAX
+
+
+def phase_mapping(cfg, world):
+    """The counted SLAM loop, more RANSAC draws, then the Schur kernel on
+    the system of the last local BA of the counted run."""
+    dev = torch.device("cuda")
+    gt = world.circle_trajectory(352, radius=2.5)[:MAP_FRAMES]
+    odo = world.odometry(gt, noise=ODO_NOISE, seed=1)
+    imgs = [torch.from_numpy(world.render(p)).to(dev) for p in gt]
+    # warm-up on the first frames: every op of the loop is loaded once
+    run_slam(cfg, imgs[:12], odo[:12], gt[:12], seed=99)
+
+    K1.fast_nms.launches = 0
+    K3.point_reduction.launches = 0
+    slam, run = run_slam(cfg, imgs, odo, gt, seed=0)
+    k1, k3 = K1.fast_nms.launches, K3.point_reduction.launches
+    log("mapping: " + json.dumps(dict(run, k1_launches=k1, k3_launches=k3)))
+    if k1 != 5 * MAP_FRAMES:
+        raise SystemExit(f"chip_smoke: K1 launched {k1} times in the SLAM loop, "
+                         f"want 5 per frame x {MAP_FRAMES}")
+    if run["n_local_ba"] < 1 or k3 != cfg.local_iter * run["n_local_ba"]:
+        raise SystemExit(f"chip_smoke: the Schur kernel launched {k3} times, want "
+                         f"{cfg.local_iter} x {run['n_local_ba']} local BAs")
+    runs = [run] + [run_slam(cfg, imgs, odo, gt, seed=s)[1] for s in range(1, MAP_DRAWS)]
+    log("mapping draws: " + json.dumps([(r["n_kf"], r["ate"], r["ate_corrected"]) for r in runs]))
+    bad = [r["seed"] for r in runs if not within_jax_spread_slam(r)]
+    if bad:
+        raise SystemExit(f"chip_smoke: SLAM draws {bad} leave the JAX package's spread "
+                         f"(keyframes {JAX_KF}, ATE <= {1.5 * JAX_ATE_MAX})")
+
+    # the Schur kernel on a real local-BA system: the window of the last
+    # keyframe on the final map, assembled and damped as the solver's
+    # first LM step does
+    c = tracking.constants(cfg, dev)
+    win = localmap.build_local_ba(slam.ms, slam._ref_kf_host, cfg)
+    cfg_ba = ba.BAConfig()
+    _, _, Hpx, Hxx_inv, _, _ = ba.damped_system(
+        win.prob, c["cam"], c["Tcb"], cfg_ba, torch.tensor(cfg_ba.lm_init_lambda, device=dev))
+    err, rel = schur_check(Hpx, Hxx_inv, f"the local BA of KF {slam._ref_kf_host}")
+    log(f"kernel: Schur on a real local BA {tuple(Hpx.shape)}: max |diff| {err}, "
+        f"relative {rel} of plain (f64)")
+    return run, k1, k3, err
+
+
 def main():
     smi = phase_device()
     phase_build()
@@ -313,16 +540,29 @@ def main():
     t = phase_kernel(extract, world, gt[0])
     phase_extractor(extract, oc, world.render(gt[5]))
     launches = phase_main_path(cfg, oc, extract, world, gt)
+    ts = phase_schur()
+    run, k1_map, k3_map, real_err = phase_mapping(cfg, world)
     kernel = dict(
         name="fast_nms", route="cuda", source="se2lam_tpu_torch/csrc/fast_nms.cu",
-        replaces="se2lam_tpu/frontend/pallas_fast.py:101", launches=launches,
+        replaces="se2lam_tpu/frontend/pallas_fast.py:101", launches=k1_map,
+        launches_tracking_path=launches,
         max_abs_err=t["max_abs_err"], max_abs_diff=t["max_abs_err"],
         ms=t["ms"], level_ms=t["level_ms"], eager_ms=t["eager_ms"],
         plain_ms=t["plain_ms"], plain_eager_ms=t["plain_eager_ms"],
         bound_ms=t["bound_ms"], bound_us=1e3 * t["bound_ms"], bound_by=t["bound_by"],
         library_ms=None, px_per_frame=t["px"], card=smi,
     )
-    print(json.dumps({"kernels": [kernel]}), flush=True)
+    loc, glob = ts[LOCAL_BA_SHAPE], ts[GLOBAL_BA_SHAPE]
+    schur_kernel = dict(
+        name="schur_reduce", route="cuda", source="se2lam_tpu_torch/csrc/schur_reduce.cu",
+        replaces="se2lam_tpu/solver/pallas_schur.py:91", launches=k3_map,
+        max_abs_err=loc["max_abs_err"], rel_err=loc["rel_err"], real_ba_max_abs_err=real_err,
+        ms=loc["ms"], eager_ms=loc["eager_ms"], plain_ms=loc["plain_ms"],
+        plain_eager_ms=loc["plain_eager_ms"], bound_ms=loc["bound_ms"],
+        bound_by=loc["bound_by"], library_ms=loc["library_ms"], shape_KM=LOCAL_BA_SHAPE,
+        global_ba=dict(glob, shape_KM=GLOBAL_BA_SHAPE), card=smi,
+    )
+    print(json.dumps({"kernels": [kernel, schur_kernel]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

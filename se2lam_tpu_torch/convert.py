@@ -13,9 +13,14 @@ import torch
 from .config import Capacity, SystemConfig
 from .device import resolve_device
 from .frontend.orb import OrbFeatures
+from .mapstate import MapState
+from .solver.ba import BAProblem
 from .tracking import TrackState
 
-__all__ = ["orb_features_from_numpy", "track_state_from_numpy", "config_from_fields"]
+__all__ = [
+    "orb_features_from_numpy", "track_state_from_numpy", "config_from_fields",
+    "map_state_from_numpy", "ba_problem_from_numpy",
+]
 
 
 def _tensor(a, dev):
@@ -54,3 +59,16 @@ def config_from_fields(fields: dict) -> SystemConfig:
     if isinstance(kw.get("cap"), dict):
         kw["cap"] = Capacity(**kw["cap"])
     return SystemConfig(**kw)
+
+
+def map_state_from_numpy(ms, device=None) -> MapState:
+    """MapState from an object with the same fields (the JAX package's
+    MapState as numpy arrays); names, shapes and dtypes carry over."""
+    dev = resolve_device(device)
+    return MapState(*(_tensor(getattr(ms, k), dev) for k in MapState._fields))
+
+
+def ba_problem_from_numpy(prob, device=None) -> BAProblem:
+    """BAProblem from an object with the same fields."""
+    dev = resolve_device(device)
+    return BAProblem(*(_tensor(getattr(prob, k), dev) for k in BAProblem._fields))

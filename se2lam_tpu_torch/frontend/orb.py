@@ -31,6 +31,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..ops.topk import top_k
 from .fast_nms import fast_nms
 from .pattern import HALF_PATCH, N_BITS, PATTERN_X, PATTERN_Y
 
@@ -185,13 +186,6 @@ def _level_grid(cfg: OrbConfig, H: int, W: int, quota: int):
     return ncy, ncx, cell_h, cell_w
 
 
-def _top_k(x, k: int):
-    """``lax.top_k`` along the last axis: descending, lower index first
-    among equals (a stable sort; ``torch.topk`` documents no tie order)."""
-    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
-    return vals[..., :k], idx[..., :k]
-
-
 def _select_level_keypoints(cfg: OrbConfig, s_high, s_low, s_low_raw,
                             quota: int):
     """Cell quotas + redistribution over precomputed FAST score maps.
@@ -227,7 +221,7 @@ def _select_level_keypoints(cfg: OrbConfig, s_high, s_low, s_low_raw,
     # k-th; the score breaks ties within a tier (FAST scores ≤ 16·255 <
     # 8192 keep the tier stride f32-exact)
     k_cell = max(2, min(6, -(-2 * quota // n_cells)))
-    top_scores, top_idx = _top_k(cells, k_cell)            # (n_cells, k)
+    top_scores, top_idx = top_k(cells, k_cell)            # (n_cells, k)
     rank = torch.arange(k_cell, device=cells.device)[None, :]
     tier = (k_cell - rank).to(top_scores.dtype) * 8192.0
     priority = torch.where(
@@ -236,7 +230,7 @@ def _select_level_keypoints(cfg: OrbConfig, s_high, s_low, s_low_raw,
         torch.full_like(top_scores, -math.inf),
     )
 
-    sel_p, sel = _top_k(priority.reshape(-1), quota)
+    sel_p, sel = top_k(priority.reshape(-1), quota)
     valid = sel_p > 0.0
     # cell id, rank and score unpack from the flat index and the key
     r_sel = sel % k_cell

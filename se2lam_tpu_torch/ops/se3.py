@@ -6,7 +6,9 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["skew", "inv", "apply", "make_rt"]
+__all__ = ["skew", "inv", "apply", "make_rt", "so3_exp"]
+
+_EPS = 1e-8
 
 
 def skew(v):
@@ -43,3 +45,18 @@ def inv(T):
 def apply(T, pt):
     """Transform 3D point(s): R·p + t (reference cvu::se3map, src/cvutil.cpp:100)."""
     return torch.einsum("...ij,...j->...i", T[..., :3, :3], pt) + T[..., :3, 3]
+
+
+def so3_exp(phi):
+    """Rodrigues: axis-angle 3-vector(s) → rotation matrix (..., 3, 3)."""
+    theta2 = torch.sum(phi * phi, dim=-1)
+    theta = torch.sqrt(theta2 + _EPS)
+    a = torch.sinc(theta / torch.pi)  # sin(theta)/theta
+    b = torch.where(
+        theta2 > 1e-8,
+        (1.0 - torch.cos(theta)) / torch.clamp(theta2, min=_EPS),
+        0.5 - theta2 / 24.0,
+    )
+    K = skew(phi)
+    eye = torch.eye(3, dtype=phi.dtype, device=phi.device).expand(K.shape)
+    return eye + a[..., None, None] * K + b[..., None, None] * (K @ K)

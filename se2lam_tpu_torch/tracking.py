@@ -26,7 +26,7 @@ from .ops import se2, se3
 from .ops.camera import CameraModel
 from .ops.triangulate import check_parallax, triangulate
 
-__all__ = ["TrackState", "TrackResult", "init_track_state", "track_frame"]
+__all__ = ["TrackState", "TrackResult", "init_track_state", "track_frame", "constants"]
 
 
 class TrackState(NamedTuple):
@@ -98,10 +98,11 @@ def init_track_state(
 
 
 @functools.lru_cache(maxsize=8)
-def _constants(cfg: SystemConfig, dev: torch.device):
-    """The step's constant tensors for ``cfg`` on ``dev``, made once: a
-    copy from the host each frame would wait for the device. numpy float64
-    constants become f32 before they meet a tensor. Read-only."""
+def constants(cfg: SystemConfig, dev: torch.device):
+    """The constant tensors of ``cfg`` on ``dev`` that tracking and mapping
+    use, made once: a copy from the host each frame would wait for the
+    device. numpy float64 constants become f32 before they meet a tensor.
+    Read-only."""
     def const(a):
         return torch.from_numpy(np.asarray(a, np.float32)).to(dev)
 
@@ -114,6 +115,7 @@ def _constants(cfg: SystemConfig, dev: torch.device):
         # inv_ex: no host sync to check for singularity (K is invertible)
         Kinv=torch.linalg.inv_ex(Kmat).inverse,
         odo_noise=const([cfg.odo_x_noise, cfg.odo_y_noise, cfg.odo_t_noise]),
+        level_sigma2=const(cfg.level_sigma2),
     )
 
 
@@ -137,7 +139,7 @@ def track_frame(
     ``gumbel`` ((cfg.cap.ransac_trials, N)); exactly one is given.
     """
     dtype, dev = ts.ref_pose.dtype, ts.ref_pose.device
-    c = _constants(cfg, dev)
+    c = constants(cfg, dev)
     Tcb, Tbc = c["Tcb"], c["Tbc"]
     N = ts.prev_matched.shape[0]
 

@@ -20,6 +20,9 @@ import se2lam_tpu_torch.convert, se2lam_tpu_torch.entry, se2lam_tpu_torch.factor
 import se2lam_tpu_torch.frontend, se2lam_tpu_torch.frontend.ransac
 import se2lam_tpu_torch.io, se2lam_tpu_torch.kernels, se2lam_tpu_torch.ops
 import se2lam_tpu_torch.tracking
+import se2lam_tpu_torch.mapstate, se2lam_tpu_torch.localmap, se2lam_tpu_torch.system
+import se2lam_tpu_torch.solver.ba, se2lam_tpu_torch.solver.schur, se2lam_tpu_torch.ops.topk
+import se2lam_tpu_torch.io.trajectory
 new = set(sys.modules) - before
 bad = sorted(m for m in new
              if m.split(".")[0] in ("jax", "jaxlib")
@@ -60,8 +63,22 @@ def _convert():
     orb_features_from_numpy(OrbFeatures(*[np.zeros(1, np.float32)] * 7))
 
 
-@pytest.mark.parametrize("make", [_entry, _extractor, _camera, _convert],
-                         ids=["entry", "extractor", "camera", "convert"])
+def _empty_map():
+    from se2lam_tpu_torch.config import Capacity
+    from se2lam_tpu_torch.mapstate import empty_map
+    empty_map(Capacity(max_kfs=4, max_mps=16, n_features=8))
+
+
+def _slam_system():
+    from se2lam_tpu_torch.entry import default_cfg
+    from se2lam_tpu_torch.system import SlamSystem
+    SlamSystem(default_cfg()[0], enable_loops=False)
+
+
+@pytest.mark.parametrize("make", [_entry, _extractor, _camera, _convert, _empty_map,
+                                  _slam_system],
+                         ids=["entry", "extractor", "camera", "convert", "empty_map",
+                              "slam_system"])
 def test_device_none_means_cuda_and_raises_without_it(make):
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: device=None runs there")
