@@ -27,11 +27,22 @@ a nonzero exit if it fails:
 7. mapping: the synchronous SLAM loop, ``SlamSystem(cfg,
    enable_loops=False)`` at the bench configuration with the default
    ``Capacity``, over 60 frames of the bench world with noisy odometry,
-   for 3 RANSAC draws: keyframe insertion, pruning and local BA (the
-   Schur kernel, at (K, M) = (48, 2048)) on the card. Checks the launches
-   of both kernels, that every local BA descends, finite poses, the
+   for 3 RANSAC draws: keyframe insertion (its projection match through
+   the windowed top-2 kernel), pruning and local BA (the Schur kernel, at
+   (K, M) = (48, 2048)) on the card. Checks the launches of all three
+   kernels, that every local BA descends, finite poses, the
    keyframe count and ATE against the JAX package's spread, and the
-   Schur kernel on the damped system of a real local BA of the run.
+   Schur kernel on the damped system of a real local BA of the run;
+8. localization: the counted SLAM run's map saved with ``save_map`` and
+   loaded back (every field and the vocabulary bitwise); the windowed
+   top-2 kernel against its plain version, exact on all four outputs, at
+   (8192, 1000), (8191, 997), (200, 300), on all-gated rows and on the
+   real inputs of the first tracked localization frame, and its times;
+   ``Localizer(cfg, ms, vocab)`` cold on frames 10-49 for 3 RANSAC
+   draws, every projection match a kernel launch, localized count and
+   error against the JAX package's spread; ``SlamSystem.resume`` on the
+   saved map over frames 30-59: relocalized frame, keyframes inserted,
+   every local BA descending, the launches of all three kernels.
 
 The Schur kernel is held, on every system, to its plain version evaluated
 in f64 on the same f32 inputs (see ``schur_check``).
@@ -46,17 +57,24 @@ import math
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
 
+from se2lam_tpu_torch import localizer as loc_mod
 from se2lam_tpu_torch import localmap, tracking
 from se2lam_tpu_torch.entry import default_cfg, entry
 from se2lam_tpu_torch.frontend import fast_nms as K1
+from se2lam_tpu_torch.frontend import windowed_match as K2
 from se2lam_tpu_torch.frontend.orb import OrbExtractor
-from se2lam_tpu_torch.io.synthetic import SyntheticWorld
+from se2lam_tpu_torch.io import load_map
+from se2lam_tpu_torch.io.synthetic import SyntheticWorld, map_gauge
 from se2lam_tpu_torch.io.trajectory import ate_se2
 from se2lam_tpu_torch.kernels import build_all, load_library
+from se2lam_tpu_torch.kernels.samples import k2_inputs
+from se2lam_tpu_torch.localizer import Localizer
+from se2lam_tpu_torch.mapstate import MapState
 from se2lam_tpu_torch.solver import ba
 from se2lam_tpu_torch.solver import schur as K3
 from se2lam_tpu_torch.system import SlamSystem
@@ -88,6 +106,25 @@ ODO_NOISE = (0.004, 0.002, 0.002)   # per-step odometry noise of tests/test_syst
 # than 1.5x the worst JAX draw.
 JAX_KF = 4
 JAX_ATE_MAX = 0.015198489440248385
+# windowed top-2 (K2): the int8 tensor-core peak (NVIDIA data sheet), and
+# the gate's operations on every pair (2 differences, 2 absolute values,
+# 2 window and 2 octave compares, 2 validity ands)
+INT8_OPS_PER_S = 1979e12
+K2_GATE_OPS = 10
+K2_SHAPES = [(8192, 1000), (8191, 997), (200, 300)]
+MAP_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke" / "map"
+LOC_FRAMES = range(10, 50)
+RESUME_FRAMES = range(30, 60)
+LOC_NOISE = (0.002, 0.001, 0.001)   # fresh odometry noise, seed 9
+LOC_DRAWS = 3
+# The JAX package's spread on these frames (examples/loc_draws.py, CPU, 6
+# draws, reloc_min_inliers=45): the Localizer relocalizes at frame 10 and
+# localizes all 40 frames, median error 0.05264 m, in every draw; resume
+# relocalizes at frame 30 and inserts 2 keyframes, median error
+# 0.06470-0.09131 m. A card draw passes with the same frames and counts and
+# a median error no worse than 1.5x the worst JAX draw.
+JAX_LOC_FIRST, JAX_LOC_N, JAX_LOC_ERR_MAX = 10, 40, 0.052635375410318375
+JAX_RESUME_FRAME, JAX_RESUME_KF, JAX_RESUME_ERR_MAX = 30, 2, 0.09130726009607315
 
 
 def log(msg):
@@ -498,14 +535,18 @@ def phase_mapping(cfg, world):
     # warm-up on the first frames: every op of the loop is loaded once
     run_slam(cfg, imgs[:12], odo[:12], gt[:12], seed=99)
 
-    K1.fast_nms.launches = 0
-    K3.point_reduction.launches = 0
-    slam, run = run_slam(cfg, imgs, odo, gt, seed=0)
-    k1, k3 = K1.fast_nms.launches, K3.point_reduction.launches
-    log("mapping: " + json.dumps(dict(run, k1_launches=k1, k3_launches=k3)))
+    K1.fast_nms.launches = K2.windowed_top2.launches = K3.point_reduction.launches = 0
+    with Counted(localmap, "match_by_projection_streamed") as im:
+        slam, run = run_slam(cfg, imgs, odo, gt, seed=0)
+    k1, k2, k3 = K1.fast_nms.launches, K2.windowed_top2.launches, K3.point_reduction.launches
+    log("mapping: " + json.dumps(dict(run, k1_launches=k1, k2_launches=k2, k3_launches=k3,
+                                      insert_projection_matches=im.calls)))
     if k1 != 5 * MAP_FRAMES:
         raise SystemExit(f"chip_smoke: K1 launched {k1} times in the SLAM loop, "
                          f"want 5 per frame x {MAP_FRAMES}")
+    if k2 != im.calls or k2 < 1:
+        raise SystemExit(f"chip_smoke: K2 launched {k2} times in the SLAM loop for "
+                         f"{im.calls} projection matches of keyframe insertion")
     if run["n_local_ba"] < 1 or k3 != cfg.local_iter * run["n_local_ba"]:
         raise SystemExit(f"chip_smoke: the Schur kernel launched {k3} times, want "
                          f"{cfg.local_iter} x {run['n_local_ba']} local BAs")
@@ -527,7 +568,280 @@ def phase_mapping(cfg, world):
     err, rel = schur_check(Hpx, Hxx_inv, f"the local BA of KF {slam._ref_kf_host}")
     log(f"kernel: Schur on a real local BA {tuple(Hpx.shape)}: max |diff| {err}, "
         f"relative {rel} of plain (f64)")
-    return run, k1, k3, err
+    return slam, run, k1, k2, k3, err
+
+
+def k2_check(args, what):
+    """K2 against its plain version on the same inputs: all four outputs
+    equal. Returns the largest |distance difference| (0 when equal)."""
+    got = K2.windowed_top2(*args)
+    want = K2.windowed_top2_plain(*args)
+    torch.cuda.synchronize()
+    for name, g, w in zip(("best", "second", "argbest", "argsecond"), got, want):
+        if g.dtype != w.dtype or not torch.equal(g, w):
+            raise SystemExit(f"chip_smoke: K2 {name} differs from plain on {what}: "
+                             f"{int((g != w).sum())} rows")
+    return max(float((g - w).abs().max()) for g, w in zip(got[:2], want[:2]))
+
+
+def k2_bound(args):
+    """(bound ms, bound_by, all-pairs bound ms, gated pairs) at these
+    inputs. Operations: a dot product of 256 int8 values (512 operations)
+    for each pair the gate lets through, over the int8 tensor-core peak,
+    plus the gate's operations on every pair over the f32 peak. Bytes:
+    each input read once, each output written once. The all-pairs bound
+    counts a dot product for every pair."""
+    N1, N2 = args[0].shape[0], args[6].shape[0]
+    gated = int(K2.windowed_gate(*args[1:6], *args[7:10]).sum())
+    ops_s = gated * 512 / INT8_OPS_PER_S + N1 * N2 * K2_GATE_OPS / F32_OPS_PER_S
+    nbytes = sum(a.numel() * a.element_size() for a in args) + N1 * 16
+    bytes_s = nbytes / HBM_BYTES_PER_S
+    all_pairs_s = max(N1 * N2 * 512 / INT8_OPS_PER_S, bytes_s)
+    return (1e3 * max(ops_s, bytes_s), "operations" if ops_s >= bytes_s else "bytes",
+            1e3 * all_pairs_s, gated)
+
+
+def phase_k2():
+    """K2 against its plain version at every listed shape and on all-gated
+    rows."""
+    errs = {}
+    for i, (N1, N2) in enumerate(K2_SHAPES):
+        x = [a.cuda() for a in k2_inputs(N1, N2, seed=i)]
+        errs[(N1, N2)] = k2_check(x, f"random ({N1}, {N2})")
+    x = [a.cuda() for a in k2_inputs(300, 200, seed=9)]
+    x[2] = torch.full_like(x[2], -1.0)          # a negative window admits nothing
+    k2_check(x, "all-gated rows")
+    best, second, arg, arg2 = K2.windowed_top2(*x)
+    if not (bool((best == 1e9).all()) and bool((second == 1e9).all())
+            and not bool(arg.any()) and not bool(arg2.any())):
+        raise SystemExit("chip_smoke: K2 all-gated rows are not (1e9, 1e9, 0, 0)")
+    log(f"kernel: K2 equal to plain on all four outputs at {K2_SHAPES} and all-gated rows")
+    return max(errs.values())
+
+
+def phase_save_reload(slam):
+    """save_map, then load_map on the card: every field and the vocabulary
+    bitwise equal."""
+    vocab = slam.save_map(str(MAP_DIR))
+    ms, vocab2, info = load_map(str(MAP_DIR))
+    if vocab is None or vocab2 is None:
+        raise SystemExit("chip_smoke: save_map wrote no vocabulary")
+    pairs = [(f"ms_{n}", getattr(slam.ms, n), getattr(ms, n)) for n in MapState._fields]
+    pairs += [("vocab_words", vocab.words, vocab2.words), ("vocab_idf", vocab.idf, vocab2.idf)]
+    for name, a, b in pairs:
+        if (a.dtype != b.dtype or a.shape != b.shape or b.device.type != "cuda"
+                or a.cpu().numpy().tobytes() != b.cpu().numpy().tobytes()):
+            raise SystemExit(f"chip_smoke: {name} differs after save_map/load_map")
+    log(f"save/reload: {len(pairs)} arrays bitwise equal, {info['n_kf']} keyframes, "
+        f"{info['n_mp']} map points, vocabulary {tuple(vocab.words.shape)}")
+    return ms, vocab2
+
+
+class Counted:
+    """Counts the calls of a module-level function, and keeps the result
+    of the latest call (the wrapper adds no host synchronisation)."""
+
+    def __init__(self, module, name):
+        self.module, self.name = module, name
+        self.orig = getattr(module, name)
+        self.calls, self.last = 0, None
+
+    def __enter__(self):
+        def counted(*args, **kw):
+            self.calls += 1
+            self.last = self.orig(*args, **kw)
+            return self.last
+
+        setattr(self.module, self.name, counted)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.orig)
+
+
+def run_localize(cfg, ms, vocab, imgs, odo, gt_map, frames, seed):
+    """One cold localization pass; returns the run's numbers, the counted
+    projection matches and the K2 inputs of its first tracked frame."""
+    loc = Localizer(cfg, ms, vocab,
+                    generator=torch.Generator(device="cuda").manual_seed(seed))
+    real = None
+    with Counted(loc_mod, "_project_and_match") as pm, \
+            Counted(K2, "projection_match_inputs") as inputs, \
+            StageTimer(loc_mod, "_localize_step") as st, \
+            StageTimer(loc_mod, "_project_and_match") as mt, \
+            StageTimer(loc_mod, "solve_pose_only") as pt, \
+            StageTimer(Localizer, "_relocalize") as rt:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        poses, frame_ms = [], []
+        for i in frames:
+            f0 = time.perf_counter()
+            poses.append(loc.process(imgs[i], odo[i]))      # ends in a host read
+            frame_ms.append(1e3 * (time.perf_counter() - f0))
+            if real is None and loc.trajectory[-1][2]:
+                real = inputs.last
+        torch.cuda.synchronize()
+        loop_s = time.perf_counter() - t0
+        step_ms, match_ms, pose_ms, reloc_ms = st.ms(), mt.ms(), pt.ms(), rt.ms()
+    hit = [(i, p) for i, p in zip(frames, poses) if p is not None]
+    if not all(np.isfinite(p).all() for _, p in hit):
+        raise SystemExit(f"chip_smoke: localization draw {seed}: a pose is not finite")
+    errs = [float(np.linalg.norm(p[:2] - gt_map[i])) for i, p in hit]
+    run_localize.last = loc
+    return dict(
+        seed=seed, first=hit[0][0] if hit else None, n_localized=len(hit),
+        n_tracked=sum(t for _, _, t in loc.trajectory),
+        median_err=float(np.median(errs)) if errs else None,
+        frames_per_s=len(frames) / loop_s, loop_s=loop_s,
+        frame_wall_ms_median=float(np.median(frame_ms)), frame_wall_ms_max=max(frame_ms),
+        slowest_frame=frames[int(np.argmax(frame_ms))],
+        localize_step_ms_per_frame=float(np.median(step_ms)) if step_ms else None,
+        project_match_ms_per_call=float(np.median(match_ms)),
+        pose_only_ms_per_call=float(np.median(pose_ms)),
+        reloc_ms=reloc_ms, projection_matches=pm.calls,
+    ), real
+
+
+def profile_frame(loc, img, odo):
+    """One more localization frame under ``torch.profiler``: the CUDA
+    kernels it launched, their summed device time, the frame's wall time
+    (ends in a synchronise), the device's idle share, and the five kernels
+    launched most often (name, launches, device ms). None where the
+    profiler saw no device activity."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loc.process(img, odo)
+        torch.cuda.synchronize()
+        wall_us = 1e6 * (time.perf_counter() - t0)
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not kernels:
+        return None
+    busy_us = sum(e.time_range.elapsed_us() for e in kernels)
+    by_name = {}
+    for e in kernels:
+        n, us = by_name.get(e.name, (0, 0.0))
+        by_name[e.name] = (n + 1, us + e.time_range.elapsed_us())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:5]
+    return dict(cuda_kernels=len(kernels), device_busy_ms=busy_us / 1e3,
+                wall_ms=wall_us / 1e3, device_idle_share=1.0 - busy_us / wall_us,
+                tracked=bool(loc.trajectory[-1][2]),
+                top_kernels=[(name[:60], n, us / 1e3) for name, (n, us) in top])
+
+
+def within_jax_spread_loc(run):
+    """The rule stated at JAX_LOC_FIRST/JAX_LOC_N/JAX_LOC_ERR_MAX."""
+    return (run["first"] == JAX_LOC_FIRST and run["n_localized"] == JAX_LOC_N
+            and run["median_err"] <= 1.5 * JAX_LOC_ERR_MAX)
+
+
+def phase_localization(cfg, world, slam):
+    """Save and reload the SLAM run's map, localize on it (the counted draw
+    and more RANSAC draws), check and time K2 on the real inputs of the
+    first tracked frame, then resume SLAM on the saved map."""
+    dev = torch.device("cuda")
+    gt = world.circle_trajectory(352, radius=2.5)[:MAP_FRAMES]
+    gt_map = map_gauge(gt)
+    odo = world.odometry(gt, noise=LOC_NOISE, seed=9)
+    imgs = [torch.from_numpy(world.render(p)).to(dev) for p in gt]
+    ms, vocab = phase_save_reload(slam)
+    # warm-up: a short pass loads every op of the path once
+    run_localize(cfg, ms, vocab, imgs, odo, gt_map, LOC_FRAMES[:4], seed=99)
+
+    K1.fast_nms.launches = 0
+    K2.windowed_top2.launches = 0
+    run, real = run_localize(cfg, ms, vocab, imgs, odo, gt_map, LOC_FRAMES, seed=0)
+    k1, k2 = K1.fast_nms.launches, K2.windowed_top2.launches
+    log("localization: " + json.dumps(dict(run, k1_launches=k1, k2_launches=k2)))
+    if k2 != run["projection_matches"] or k2 < len(LOC_FRAMES) - 1:
+        raise SystemExit(f"chip_smoke: K2 launched {k2} times for "
+                         f"{run['projection_matches']} projection matches")
+    if k1 != 5 * len(LOC_FRAMES):
+        raise SystemExit(f"chip_smoke: K1 launched {k1} times in localization, "
+                         f"want 5 per frame x {len(LOC_FRAMES)}")
+    last = LOC_FRAMES[-1]
+    log("localization frame profile: " + json.dumps(
+        profile_frame(run_localize.last, imgs[last], odo[last])))
+    runs = [run] + [run_localize(cfg, ms, vocab, imgs, odo, gt_map, LOC_FRAMES, seed=s)[0]
+                    for s in range(1, LOC_DRAWS)]
+    log("localization draws: " + json.dumps(
+        [(r["first"], r["n_localized"], r["median_err"]) for r in runs]))
+    bad = [r["seed"] for r in runs if not within_jax_spread_loc(r)]
+    if bad:
+        raise SystemExit(f"chip_smoke: localization draws {bad} leave the JAX package's "
+                         f"spread (first frame {JAX_LOC_FIRST}, {JAX_LOC_N} localized, "
+                         f"median error <= {1.5 * JAX_LOC_ERR_MAX})")
+
+    # K2 on the real inputs of the first tracked frame, then its times there
+    if real is None or tuple(real[0].shape) != (cfg.cap.max_mps, 256):
+        raise SystemExit("chip_smoke: no tracked frame gave K2 inputs at the bank's size")
+    real = tuple(real)
+    real_err = k2_check(real, "the first tracked localization frame")
+    bound, by, all_pairs, gated = k2_bound(real)
+    t = dict(
+        shape=(real[0].shape[0], real[6].shape[0]), gated_pairs=gated,
+        found_rows=int((K2.windowed_top2(*real)[0] < 1e9).sum()),
+        ms=graph_ms(lambda: K2.windowed_top2(*real)),
+        eager_ms=events_ms(lambda: K2.windowed_top2(*real)),
+        plain_ms=graph_ms(lambda: K2.windowed_top2_plain(*real)),
+        plain_eager_ms=events_ms(lambda: K2.windowed_top2_plain(*real)),
+        bound_ms=bound, bound_by=by, bound_all_pairs_ms=all_pairs, max_abs_err=real_err,
+    )
+    log("kernel times K2 (ms) on the first tracked frame: " + json.dumps(t))
+
+    return k2, t, phase_resume(cfg, imgs, odo, gt_map)
+
+
+def phase_resume(cfg, imgs, odo, gt_map):
+    """SlamSystem.resume on the saved map: the relocalized frame, the
+    keyframes inserted, every local BA descending, and every kernel's
+    launches."""
+    slam = SlamSystem.resume(cfg, str(MAP_DIR), enable_loops=False)   # the card
+    slam.log_ba = True
+    n_kf0 = slam.n_keyframes()
+    K1.fast_nms.launches = K2.windowed_top2.launches = K3.point_reduction.launches = 0
+    with Counted(loc_mod, "_project_and_match") as pm, \
+            Counted(localmap, "match_by_projection_streamed") as im:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        poses = [slam.process(imgs[i], odo[i]) for i in RESUME_FRAMES]
+        torch.cuda.synchronize()
+        loop_s = time.perf_counter() - t0
+    k1, k2, k3 = K1.fast_nms.launches, K2.windowed_top2.launches, K3.point_reduction.launches
+    hit = [(i, p) for i, p in zip(RESUME_FRAMES, poses) if np.linalg.norm(p) > 1e-6]
+    errs = [float(np.linalg.norm(p[:2] - gt_map[i])) for i, p in hit]
+    run = dict(
+        reloc_frame=hit[0][0] if hit else None, kf_inserted=slam.n_keyframes() - n_kf0,
+        median_err=float(np.median(errs)) if errs else None, n_local_ba=slam.n_local_ba,
+        chi2_ratio_max=max((r["chi2"] / r["chi2_init"] for r in slam.ba_log), default=None),
+        frames_per_s=len(RESUME_FRAMES) / loop_s, projection_matches=pm.calls,
+        insert_projection_matches=im.calls,
+        k1_launches=k1, k2_launches=k2, k3_launches=k3,
+    )
+    log("resume: " + json.dumps(run))
+    for rec in slam.ba_log:
+        if not rec["chi2"] <= rec["chi2_init"]:
+            raise SystemExit(f"chip_smoke: resume: local BA did not descend: {rec}")
+    if not all(np.isfinite(p).all() for p in poses) or not bool(
+            torch.isfinite(slam.ms.kf_pose[: slam.n_keyframes()]).all()):
+        raise SystemExit("chip_smoke: resume: a pose is not finite")
+    if not (run["reloc_frame"] == JAX_RESUME_FRAME and run["kf_inserted"] == JAX_RESUME_KF
+            and run["median_err"] <= 1.5 * JAX_RESUME_ERR_MAX):
+        raise SystemExit(f"chip_smoke: resume leaves the JAX package's spread (relocalized "
+                         f"at {JAX_RESUME_FRAME}, {JAX_RESUME_KF} keyframes inserted, median "
+                         f"error <= {1.5 * JAX_RESUME_ERR_MAX})")
+    # every projection match is a K2 launch: the relocalization's and one
+    # for each keyframe insertion
+    if k1 != 5 * len(RESUME_FRAMES) or pm.calls < 1 or im.calls < 1 or (
+            k2 != pm.calls + im.calls) or (
+            run["n_local_ba"] < 1 or k3 != cfg.local_iter * run["n_local_ba"]):
+        raise SystemExit(f"chip_smoke: resume launches K1 {k1}, K2 {k2} for {pm.calls} + "
+                         f"{im.calls} projection matches (relocalization + insertion), "
+                         f"K3 {k3} for {run['n_local_ba']} local BAs")
+    return run
 
 
 def main():
@@ -541,7 +855,9 @@ def main():
     phase_extractor(extract, oc, world.render(gt[5]))
     launches = phase_main_path(cfg, oc, extract, world, gt)
     ts = phase_schur()
-    run, k1_map, k3_map, real_err = phase_mapping(cfg, world)
+    slam, run, k1_map, k2_map, k3_map, real_err = phase_mapping(cfg, world)
+    k2_err = phase_k2()
+    k2_loc, t2, res = phase_localization(cfg, world, slam)
     kernel = dict(
         name="fast_nms", route="cuda", source="se2lam_tpu_torch/csrc/fast_nms.cu",
         replaces="se2lam_tpu/frontend/pallas_fast.py:101", launches=k1_map,
@@ -562,7 +878,16 @@ def main():
         bound_by=loc["bound_by"], library_ms=loc["library_ms"], shape_KM=LOCAL_BA_SHAPE,
         global_ba=dict(glob, shape_KM=GLOBAL_BA_SHAPE), card=smi,
     )
-    print(json.dumps({"kernels": [kernel, schur_kernel]}), flush=True)
+    match_kernel = dict(
+        name="windowed_top2", route="cuda", source="se2lam_tpu_torch/csrc/windowed_top2.cu",
+        replaces="se2lam_tpu/frontend/pallas_match.py:137", launches=k2_loc,
+        launches_mapping=k2_map, launches_resume=res["k2_launches"], max_abs_err=max(k2_err, t2["max_abs_err"]),
+        ms=t2["ms"], eager_ms=t2["eager_ms"], plain_ms=t2["plain_ms"],
+        plain_eager_ms=t2["plain_eager_ms"], bound_ms=t2["bound_ms"], bound_by=t2["bound_by"],
+        bound_all_pairs_ms=t2["bound_all_pairs_ms"], gated_pairs=t2["gated_pairs"],
+        library_ms=None, shape_N1N2=t2["shape"], card=smi,
+    )
+    print(json.dumps({"kernels": [kernel, schur_kernel, match_kernel]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

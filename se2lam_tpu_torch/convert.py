@@ -16,10 +16,11 @@ from .frontend.orb import OrbFeatures
 from .mapstate import MapState
 from .solver.ba import BAProblem
 from .tracking import TrackState
+from .vocab import Vocabulary
 
 __all__ = [
     "orb_features_from_numpy", "track_state_from_numpy", "config_from_fields",
-    "map_state_from_numpy", "ba_problem_from_numpy",
+    "map_state_from_numpy", "ba_problem_from_numpy", "vocabulary_from_numpy",
 ]
 
 
@@ -72,3 +73,9 @@ def ba_problem_from_numpy(prob, device=None) -> BAProblem:
     """BAProblem from an object with the same fields."""
     dev = resolve_device(device)
     return BAProblem(*(_tensor(getattr(prob, k), dev) for k in BAProblem._fields))
+
+
+def vocabulary_from_numpy(vocab, device=None) -> Vocabulary:
+    """Vocabulary from an object with ``words`` and ``idf``."""
+    dev = resolve_device(device)
+    return Vocabulary(*(_tensor(getattr(vocab, k), dev) for k in Vocabulary._fields))

@@ -6,6 +6,7 @@ f32 product of ±1 (and 0 for invalid slots) is exact with TF32 off.
 Window gating, best/second-best ratio tests, mutual exclusion and the
 30-bin rotation-consistency histogram are masked batched ops. Constants
 TH_LOW=75, TH_HIGH=100, HISTO_LENGTH=30 follow src/ORBmatcher.cpp:45-47.
+MatchByProjection is ``windowed_match.match_by_projection_streamed``.
 """
 from __future__ import annotations
 
@@ -21,7 +22,6 @@ __all__ = [
     "TH_HIGH",
     "hamming_matrix",
     "match_by_window",
-    "match_by_projection",
     "mutual_match",
 ]
 
@@ -132,60 +132,6 @@ def match_by_window(
     accept = _mutual_filter(accept, best_idx, best, f2.xy.shape[0])
     accept = _rotation_consistency(accept, f1.angle, f2.angle[best_idx])
     return _window_matches(accept, best_idx, best)
-
-
-def match_by_projection(
-    feats: OrbFeatures,
-    mp_uv,
-    mp_octave,
-    mp_desc_pm1,
-    mp_valid,
-    feat_free,
-    win_size: float = 15.0,
-    nn_ratio: float = 0.9,
-    level_offset: int = 1,
-):
-    """Match projected map points against a keyframe's free features
-    (reference MatchByProjection, src/ORBmatcher.cpp:383-454).
-
-    mp_uv (M, 2) predicted pixels, mp_octave (M,), mp_desc_pm1 (M, 256),
-    mp_valid (M,) bool, feat_free (N,) bool. Returns ((N,) int32 matched
-    map-point index per feature or -1, () int32 count). The window is
-    ``max(octave, 1) · win_size``, keeping level-0 points matchable.
-    """
-    D = hamming_matrix(mp_desc_pm1, feats.desc_pm1)  # (M, N)
-    win = torch.clamp(mp_octave.to(torch.float32), min=1.0) * win_size
-    dx = (feats.xy[None, :, 0] - mp_uv[:, None, 0]).abs()
-    dy = (feats.xy[None, :, 1] - mp_uv[:, None, 1]).abs()
-    in_win = (dx <= win[:, None]) & (dy <= win[:, None])
-    gate = (
-        in_win
-        & _level_gate(mp_octave, feats.octave, level_offset)
-        & mp_valid[:, None]
-        & feats.valid[None, :]
-        & feat_free[None, :]
-    )
-    Dm = torch.where(gate, D, torch.full_like(D, _BIG))
-    best, second, best_idx = _top2_min(Dm)
-    best_lvl = feats.octave[best_idx]
-    # second-best level: recompute with best masked out
-    Dm2 = Dm.clone()
-    Dm2[torch.arange(Dm.shape[0], device=Dm.device), best_idx] = _BIG
-    _, _, second_idx = _top2_min(Dm2)
-    second_lvl = feats.octave[second_idx]
-    ratio_fail = (best_lvl == second_lvl) & (best > nn_ratio * second)
-    accept = (best <= TH_HIGH) & (~ratio_fail) & mp_valid
-    accept = _mutual_filter(accept, best_idx, best, feats.xy.shape[0])
-
-    # invert: per feature, which MP matched it (rejected rows land on a
-    # dropped extra slot; accepted columns are unique after the filter)
-    n_feats = feats.xy.shape[0]
-    m_ids = torch.arange(mp_uv.shape[0], dtype=torch.int32, device=Dm.device)
-    feat_match = torch.full((n_feats + 1,), -1, dtype=torch.int32, device=Dm.device)
-    feat_match[torch.where(accept, best_idx, torch.full_like(best_idx, n_feats))] = (
-        torch.where(accept, m_ids, torch.full_like(m_ids, -1))
-    )
-    return feat_match[:n_feats], accept.sum(dtype=torch.int32)
 
 
 def mutual_match(

@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["SyntheticWorld"]
+__all__ = ["SyntheticWorld", "map_gauge"]
 
 
 class SyntheticWorld:
@@ -153,6 +153,14 @@ class SyntheticWorld:
         odo = self.odometry(self.gt, noise, seed)
         for k in range(n_frames):
             yield self.render(self.gt[k]), odo[k]
+
+
+def map_gauge(gt):
+    """Ground-truth positions in the gauge of a map built from ``gt[0]``:
+    ``se2.minus(gt[i], gt[0])[:2]``, as (n, 2)."""
+    d = gt[:, :2] - gt[0, :2]
+    c, s = np.cos(gt[0, 2]), np.sin(gt[0, 2])
+    return np.stack([c * d[:, 0] + s * d[:, 1], -s * d[:, 0] + c * d[:, 1]], 1)
 
 
 def _se2_mat(p):

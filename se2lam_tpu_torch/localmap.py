@@ -29,8 +29,8 @@ import torch
 
 from . import factors
 from .config import SystemConfig
-from .frontend.matcher import match_by_projection
 from .frontend.orb import OrbFeatures
+from .frontend.windowed_match import match_by_projection_streamed
 from .mapstate import MapState, kf_Tcw
 from .ops import linalg, se3
 from .ops.topk import top_k
@@ -287,7 +287,7 @@ def add_keyframe(ms: MapState, feats: OrbFeatures, pose, odom, ref_kf, match_idx
         & (cos_view > _COS_30)
     )
     feat_free = feats.valid & (obs_row < 0)
-    proj_match, _n_proj = match_by_projection(
+    proj_match, _n_proj = match_by_projection_streamed(
         feats, torch.stack([u, v], -1), ms.mp_main_octave, ms.mp_desc, cand, feat_free,
         level_offset=2,         # findCorrespd passes 2 (src/LocalMapper.cpp:118)
     )

@@ -9,13 +9,19 @@ one more for the new reference slot and pose. (The JAX package defers
 that second read to the next frame's, to hide a remote chip's round
 trip; the anchors and ``corrected_trajectory()`` come out the same.)
 
-Not in this slice, and raising ``NotImplementedError``: loop closing
+``save_map`` writes the map (with a vocabulary trained on its keyframes)
+in the JAX package's format, and ``resume`` continues SLAM on a saved map:
+its first frame relocalizes through a ``Localizer`` and becomes a keyframe
+chained from the loaded map's tail.
+
+Not ported yet, and raising ``NotImplementedError``: loop closing
 (``enable_loops=True``), a device mesh, the async, pipelined and chunked
-feeds, ``resume`` and ``save_map``, and the capacity relief that runs when
-the keyframe or map-point bank fills up (``ROADMAP.md`` §1).
+feeds, and the capacity relief that runs when the keyframe or map-point
+bank fills up (``ROADMAP.md`` §1).
 """
 from __future__ import annotations
 
+import os
 import time
 
 import numpy as np
@@ -25,9 +31,13 @@ from . import localmap, tracking
 from .config import SystemConfig
 from .device import resolve_device
 from .frontend.orb import OrbConfig, OrbExtractor, OrbFeatures
+from .io.mapstorage import load_map, save_map as _save_map
 from .io.trajectory import save_trajectory
+from .localizer import Localizer
 from .mapstate import MapState, empty_map
+from .ops import se2
 from .ops.camera import CameraModel, undistort_points
+from .vocab import train_vocab
 
 __all__ = ["SlamSystem"]
 
@@ -76,8 +86,7 @@ class SlamSystem:
     def __init__(self, cfg: SystemConfig, enable_loops: bool = True, mesh=None,
                  device=None, generator: torch.Generator | None = None):
         if enable_loops:
-            raise _not_in_slice("loop closing (enable_loops=True)",
-                                "slice 3, items 14-15")
+            raise _not_in_slice("loop closing (enable_loops=True)", "slice 3, item 15")
         if mesh is not None:
             raise _not_in_slice("the distributed mode (mesh)", "slice 5, item 20")
         self.cfg = cfg
@@ -111,12 +120,67 @@ class SlamSystem:
         self.n_local_ba = 0
         self.log_ba = False
         self.ba_log: list[dict] = []
-
-    # -- feeds not in this slice --
+        self._resume_pending = False
+        self._reloc_localizer: Localizer | None = None
 
     @classmethod
-    def resume(cls, *args, **kwargs):
-        raise _not_in_slice("resume", "slice 4, item 16")
+    def resume(cls, cfg: SystemConfig, map_path: str, enable_loops: bool = False, mesh=None,
+               device=None, generator: torch.Generator | None = None) -> "SlamSystem":
+        """Continue SLAM on a saved map (the reference's USE_PREV_MAP mode,
+        src/OdoSLAM.cpp:112-115 + MapStorage::loadMap). The first frames
+        relocalize against the loaded map (BoW + RANSAC-verified 2D-3D
+        matches, ``Localizer(reloc_min_inliers=30)``) and are reported at
+        the origin until one succeeds; that frame becomes a keyframe in the
+        loaded map's gauge. The map must have been saved with its
+        vocabulary and at this ``cfg``'s capacities. ``generator`` gives
+        the relocalization's RANSAC draws and then tracking's."""
+        slam = cls(cfg, enable_loops=enable_loops, mesh=mesh, device=device,
+                   generator=generator)
+        ms, vocab, info = load_map(map_path, slam.device)
+        if vocab is None:
+            raise ValueError("resume requires a map saved with its vocabulary "
+                             "(needed to relocalize the first frame)")
+        caps = (cfg.cap.max_kfs, cfg.cap.max_mps, cfg.cap.n_features)
+        if (ms.K, ms.M, ms.N) != caps:
+            raise ValueError(f"config capacities {caps} do not match the saved "
+                             f"map's {(ms.K, ms.M, ms.N)}")
+        if info["n_kf"] >= cfg.cap.max_kfs:
+            raise ValueError("saved map is at keyframe capacity; no slot for the "
+                             "relocalization seed — raise cap.max_kfs")
+        slam.ms = ms
+        # kf_frame_ids stays slot-indexed: loaded keyframes have no frame id
+        slam.kf_frame_ids = [-1] * int(info["n_kf"])
+        slam._resume_pending = True
+        slam._reloc_localizer = Localizer(cfg, ms, vocab, reloc_min_inliers=30,
+                                          device=slam.device, generator=slam.generator)
+        return slam
+
+    def _try_resume_reloc(self, feats: OrbFeatures, odo) -> bool:
+        """Relocalize a resumed session's frame; on success insert it as a
+        keyframe at the relocalized pose and start tracking. The seed chains
+        from the loaded map's tail (whose next-keyframe slot is free) with a
+        near-uninformative 1e6·I covariance: no odometry spans the gap
+        between the sessions."""
+        pose = self._reloc_localizer.process_features(feats, odo)
+        if pose is None:
+            return False
+        dev = self.device
+        ref_idx = int(self.ms.n_kf) - 1
+        pose_t = torch.from_numpy(pose).to(dev)
+        n = self.orb_cfg.n_slots
+        ts = tracking.init_track_state(
+            feats, pose_t, odo, ref_idx, torch.zeros((n, 3), dtype=torch.float32, device=dev),
+            torch.zeros(n, dtype=torch.bool, device=dev))
+        self.ts = ts._replace(
+            cur_pose=pose_t, pre_meas=se2.minus(pose_t, self.ms.kf_pose[ref_idx]),
+            pre_cov=torch.eye(3, dtype=torch.float32, device=dev) * 1e6)
+        self._insert_keyframe(feats, odo)
+        self._resume_pending = False
+        # tracking owns the map from here; the Localizer's copy and bank go
+        self._reloc_localizer = None
+        return True
+
+    # -- feeds not in this slice --
 
     def process_async(self, *args, **kwargs):
         raise _not_in_slice("the pipelined feed (process_async)", "slice 5, item 17")
@@ -126,9 +190,6 @@ class SlamSystem:
 
     def process_chunk_async(self, *args, **kwargs):
         raise _not_in_slice("the chunked feed (process_chunk_async)", "slice 5, item 17")
-
-    def save_map(self, *args, **kwargs):
-        raise _not_in_slice("save_map", "slice 4, item 16")
 
     # -- main synchronous step --
 
@@ -150,6 +211,18 @@ class SlamSystem:
         cfg, dev = self.cfg, self.device
         odo = torch.as_tensor(odo, dtype=torch.float32).to(dev)
         zero = torch.zeros(3, dtype=torch.float32, device=dev)
+
+        if self.ts is None and self._resume_pending:
+            # resumed session: relocalize against the loaded map first
+            pose = np.zeros(3, np.float32)
+            if self._try_resume_reloc(feats, odo):
+                pose = self._ref_pose_host.copy()
+                # the seed frame is anchored on its own keyframe
+                self._frame_anchors.append(
+                    (self.frame_id, self._ref_kf_host, np.zeros(3, np.float32)))
+            self.trajectory.append((self.frame_id, pose))
+            self.frame_id += 1
+            return pose
 
         if self.ts is None:
             # first frame → KF 0 at the origin if enough keypoints
@@ -254,6 +327,24 @@ class SlamSystem:
 
     def save_kf_trajectory(self, path: str):
         save_trajectory(path, self.kf_trajectory())
+
+    def save_map(self, path: str, with_vocab: bool = True):
+        """The shutdown save (SAVE_NEW_MAP and the keyframe-trajectory dump,
+        src/OdoSLAM.cpp:192-215): the map in the JAX package's format, with
+        a 512-word vocabulary trained over the keyframes' descriptors (one
+        document per keyframe) when ``with_vocab`` and there are at least
+        two keyframes, and ``se2lam_kf_trajectory.txt`` beside it. Returns
+        the saved vocabulary, or None."""
+        ms, vocab = self.ms, None
+        if with_vocab and self.n_keyframes() >= 2:
+            K, N = ms.K, ms.N
+            valid = (ms.kf_feat_valid & ms.kf_valid[:, None]).reshape(-1)
+            doc_ids = torch.arange(K, dtype=torch.int32, device=self.device).repeat_interleave(N)
+            vocab = train_vocab(ms.kf_desc.reshape(-1, 256), valid, n_words=512, iters=5,
+                                doc_ids=doc_ids, n_docs_cap=K)
+        _save_map(path, ms, vocab)
+        self.save_kf_trajectory(os.path.join(path, "se2lam_kf_trajectory.txt"))
+        return vocab
 
     def corrected_trajectory(self) -> np.ndarray:
         """(n, 4) [frame_id, x, y, theta]: every frame's pose re-anchored on

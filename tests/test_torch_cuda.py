@@ -13,8 +13,10 @@ import torch
 from se2lam_tpu_torch import tracking
 from se2lam_tpu_torch.entry import default_cfg
 from se2lam_tpu_torch.frontend import fast_nms as K1
+from se2lam_tpu_torch.frontend import windowed_match as K2
 from se2lam_tpu_torch.frontend.orb import OrbExtractor
 from se2lam_tpu_torch.io.synthetic import SyntheticWorld
+from se2lam_tpu_torch.kernels.samples import k2_inputs
 from se2lam_tpu_torch.solver import ba
 from se2lam_tpu_torch.solver import schur as K3
 
@@ -145,3 +147,73 @@ def test_schur_kernel_rejects_what_it_does_not_take(card):
         K3.point_reduction(Hpx.double(), Hxx_inv.double())
     with pytest.raises(ValueError):
         K3.point_reduction(Hpx, Hxx_inv.transpose(-1, -2))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N1,N2", [(8192, 1000), (8191, 997), (1, 1)])
+def test_windowed_top2_matches_plain_on_card(card, N1, N2):
+    """All four outputs exactly equal to the plain version on the card,
+    ties included; the same bits on a second launch."""
+    x = [a.to(card) for a in k2_inputs(N1, N2)]
+    before = K2.windowed_top2.launches
+    got = K2.windowed_top2(*x)
+    again = K2.windowed_top2(*x)
+    want = K2.windowed_top2_plain(*x)
+    torch.cuda.synchronize()
+    assert K2.windowed_top2.launches == before + 2
+    for g, a, w in zip(got, again, want):
+        assert g.dtype == w.dtype and torch.equal(g, w) and torch.equal(g, a)
+    if N1 > 1:
+        assert int((got[0] < 1e9).sum()) > 100 and bool((got[0] == got[1]).any())
+
+
+@pytest.mark.cuda
+def test_windowed_top2_all_gated_rows(card):
+    x = [a.to(card) for a in k2_inputs(300, 200, seed=1)]
+    x[2] = torch.full_like(x[2], -1.0)                 # a negative window admits nothing
+    best, second, arg, arg2 = K2.windowed_top2(*x)
+    torch.cuda.synchronize()
+    assert bool((best == 1e9).all()) and bool((second == 1e9).all())
+    assert not bool(arg.any()) and not bool(arg2.any())
+
+
+@pytest.mark.cuda
+def test_windowed_top2_rejects_what_it_does_not_take(card):
+    x = [a.to(card) for a in k2_inputs(64, 32, seed=2)]
+    bad_dtype = list(x)
+    bad_dtype[0] = x[0].to(torch.float32)
+    with pytest.raises(ValueError):
+        K2.windowed_top2(*bad_dtype)
+    strided = list(x)
+    strided[1] = torch.zeros((64, 4), device=card)[:, ::2]
+    with pytest.raises(ValueError):
+        K2.windowed_top2(*strided)
+
+
+@pytest.mark.cuda
+def test_localizer_step_launches_k2_once(card):
+    """One tracked Localizer frame on the card: one projection match, so
+    exactly one K2 launch (and 5 of K1 for the extraction)."""
+    from se2lam_tpu_torch.localizer import Localizer
+    from se2lam_tpu_torch.mapstate import empty_map
+
+    cfg, _ = default_cfg()
+    rng = np.random.default_rng(3)
+    M = cfg.cap.max_mps
+    ms = empty_map(cfg.cap, device=card)
+    ms = ms._replace(
+        mp_pos=torch.from_numpy(np.stack([rng.uniform(1, 6, M), rng.uniform(-2, 2, M),
+                                          rng.uniform(-1, 1, M)], 1).astype(np.float32)).to(card),
+        mp_valid=torch.ones(M, dtype=torch.bool, device=card),
+        mp_desc=torch.from_numpy((1 - 2 * rng.integers(0, 2, (M, 256))).astype(np.int8)).to(card),
+    )
+    with pytest.warns(UserWarning, match="without a vocabulary"):
+        loc = Localizer(cfg, ms, device=card)
+    loc.set_pose(np.zeros(3, np.float32), np.zeros(3, np.float32))
+    world = SyntheticWorld(cfg, n_landmarks=500, seed=0)
+    img = torch.from_numpy(world.render(np.asarray([0.05, 0.0, 0.01], np.float32))).to(card)
+    k1, k2 = K1.fast_nms.launches, K2.windowed_top2.launches
+    loc.process(img, np.asarray([0.05, 0.0, 0.01], np.float32))
+    torch.cuda.synchronize()
+    assert K2.windowed_top2.launches == k2 + 1
+    assert K1.fast_nms.launches == k1 + 5

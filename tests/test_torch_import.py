@@ -18,11 +18,14 @@ import chip_smoke
 import se2lam_tpu_torch
 import se2lam_tpu_torch.convert, se2lam_tpu_torch.entry, se2lam_tpu_torch.factors
 import se2lam_tpu_torch.frontend, se2lam_tpu_torch.frontend.ransac
-import se2lam_tpu_torch.io, se2lam_tpu_torch.kernels, se2lam_tpu_torch.ops
+import se2lam_tpu_torch.io, se2lam_tpu_torch.kernels, se2lam_tpu_torch.kernels.samples
+import se2lam_tpu_torch.ops
 import se2lam_tpu_torch.tracking
 import se2lam_tpu_torch.mapstate, se2lam_tpu_torch.localmap, se2lam_tpu_torch.system
 import se2lam_tpu_torch.solver.ba, se2lam_tpu_torch.solver.schur, se2lam_tpu_torch.ops.topk
-import se2lam_tpu_torch.io.trajectory
+import se2lam_tpu_torch.io.trajectory, se2lam_tpu_torch.io.mapstorage
+import se2lam_tpu_torch.vocab, se2lam_tpu_torch.solver.poseonly, se2lam_tpu_torch.loopclose
+import se2lam_tpu_torch.frontend.windowed_match, se2lam_tpu_torch.localizer
 new = set(sys.modules) - before
 bad = sorted(m for m in new
              if m.split(".")[0] in ("jax", "jaxlib")
@@ -75,10 +78,33 @@ def _slam_system():
     SlamSystem(default_cfg()[0], enable_loops=False)
 
 
+def _map_and_vocab():
+    from se2lam_tpu_torch.config import Capacity
+    from se2lam_tpu_torch.mapstate import empty_map
+    from se2lam_tpu_torch.vocab import Vocabulary
+    ms = empty_map(Capacity(max_kfs=4, max_mps=16, n_features=8), device="cpu")
+    return ms, Vocabulary(torch.ones((4, 256), dtype=torch.int8), torch.ones(4))
+
+
+def _localizer():
+    from se2lam_tpu_torch.entry import default_cfg
+    from se2lam_tpu_torch.localizer import Localizer
+    Localizer(default_cfg()[0], *_map_and_vocab())
+
+
+def _load_map():
+    import tempfile
+
+    from se2lam_tpu_torch.io import load_map, save_map
+    with tempfile.TemporaryDirectory() as d:
+        save_map(d, *_map_and_vocab())
+        load_map(d)
+
+
 @pytest.mark.parametrize("make", [_entry, _extractor, _camera, _convert, _empty_map,
-                                  _slam_system],
+                                  _slam_system, _localizer, _load_map],
                          ids=["entry", "extractor", "camera", "convert", "empty_map",
-                              "slam_system"])
+                              "slam_system", "localizer", "load_map"])
 def test_device_none_means_cuda_and_raises_without_it(make):
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: device=None runs there")

@@ -18,7 +18,7 @@ from se2lam_tpu.frontend import matcher as jm, ransac as jr
 from se2lam_tpu.frontend.orb import make_extractor
 from se2lam_tpu.io.synthetic import SyntheticWorld
 from se2lam_tpu_torch.convert import orb_features_from_numpy
-from se2lam_tpu_torch.frontend import matcher as tm, ransac as tr
+from se2lam_tpu_torch.frontend import matcher as tm, ransac as tr, windowed_match as wm
 
 torch.set_num_threads(2)
 
@@ -74,8 +74,8 @@ def test_match_by_projection(frames):
     mp_valid = a.valid & (rng.uniform(size=a.valid.shape) > 0.1)
     free = rng.uniform(size=b.valid.shape) > 0.2
     want = jm.match_by_projection(b, uv, a.octave, a.desc_pm1, mp_valid, free)
-    got = tm.match_by_projection(tb, torch.from_numpy(uv), ta.octave, ta.desc_pm1,
-                                 torch.from_numpy(mp_valid), torch.from_numpy(free))
+    got = wm.match_by_projection_streamed(tb, torch.from_numpy(uv), ta.octave, ta.desc_pm1,
+                                          torch.from_numpy(mp_valid), torch.from_numpy(free))
     assert int(want[1]) > 20
     _eq(got[0], want[0])
     _eq(got[1], want[1])

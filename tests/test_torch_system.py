@@ -103,8 +103,7 @@ def test_loops_raise_not_implemented():
         SlamSystem(config_from_fields(dataclasses.asdict(lap_cfg())), device="cpu")
 
 
-@pytest.mark.parametrize("feed", ["process_async", "process_chunk", "process_chunk_async",
-                                  "save_map", "resume"])
+@pytest.mark.parametrize("feed", ["process_async", "process_chunk", "process_chunk_async"])
 def test_feeds_of_later_slices_raise(feed):
     s = SlamSystem(config_from_fields(dataclasses.asdict(lap_cfg())), enable_loops=False,
                    device="cpu")
