@@ -7,7 +7,9 @@ Run from the root of a checkout, on a machine with one CUDA card and
 a nonzero exit if it fails:
 
 1. device: the card's name and power limit (``nvidia-smi``), CUDA version;
-2. build: compiles the port's CUDA kernels from ``se2lam_tpu_torch/csrc``;
+2. build: compiles the port's CUDA kernels from ``se2lam_tpu_torch/csrc``
+   and prints ptxas's report of each kernel: registers, static shared
+   memory and spills;
 3. kernel against plain: the FAST+NMS kernel against its plain PyTorch
    version on the card, bitwise over the whole map, at the five pyramid
    levels of a rendered bench frame and on a random 231x309 image; times
@@ -20,10 +22,12 @@ a nonzero exit if it fails:
    launches, poses, feature and match counts and the keyframe timing;
 6. Schur kernel against plain: the Schur point-reduction kernel against
    its plain PyTorch version (the einsum pair) on random SPD systems at
-   (K, M) = (4, 12), (8, 130), (24, 512), (48, 2048), (256, 8192), and on
-   zeroed point columns; times it (CUDA graph and eager), the plain
-   version and one ``torch.einsum`` call at the local-BA and global-BA
-   shapes;
+   (K, M) = (4, 12), (8, 130), (24, 512), (48, 2048), (256, 8192), on
+   zeroed point columns (from mid-chunk and from a chunk boundary: the
+   same bits as the shorter call), and S bitwise symmetric outside its
+   diagonal 3x3 blocks; times it, the plain version and one
+   ``torch.einsum`` call, each in a CUDA graph and eagerly, at the
+   local-BA and global-BA shapes;
 7. mapping: the synchronous SLAM loop, ``SlamSystem(cfg,
    enable_loops=False)`` at the bench configuration with the default
    ``Capacity``, over 60 frames of the bench world with noisy odometry,
@@ -36,8 +40,9 @@ a nonzero exit if it fails:
 8. localization: the counted SLAM run's map saved with ``save_map`` and
    loaded back (every field and the vocabulary bitwise); the windowed
    top-2 kernel against its plain version, exact on all four outputs, at
-   (8192, 1000), (8191, 997), (200, 300), on all-gated rows and on the
-   real inputs of the first tracked localization frame, and its times;
+   (8192, 1000), (8191, 997), (200, 300), with every gated distance tied
+   at N2 = 1, 31, 32, 33, 997, on all-gated rows and on the real inputs of
+   the first tracked localization frame, and its times;
    ``Localizer(cfg, ms, vocab)`` cold on frames 10-49 for 3 RANSAC
    draws, every projection match a kernel launch, localized count and
    error against the JAX package's spread; ``SlamSystem.resume`` on the
@@ -71,7 +76,7 @@ from se2lam_tpu_torch.frontend.orb import OrbExtractor
 from se2lam_tpu_torch.io import load_map
 from se2lam_tpu_torch.io.synthetic import SyntheticWorld, map_gauge
 from se2lam_tpu_torch.io.trajectory import ate_se2
-from se2lam_tpu_torch.kernels import build_all, load_library
+from se2lam_tpu_torch.kernels import build_all, load_library, ptxas_summary
 from se2lam_tpu_torch.kernels.samples import k2_inputs
 from se2lam_tpu_torch.localizer import Localizer
 from se2lam_tpu_torch.mapstate import MapState
@@ -95,6 +100,7 @@ N_DRAWS = 8        # RANSAC draws of the main path
 # (tests/test_pallas_schur.py), relative to the largest entry
 SCHUR_REL_TOL = 1e-5
 SCHUR_SHAPES = [(4, 12), (8, 130), (24, 512), (48, 2048), (256, 8192)]
+SCHUR_ZERO_FROM = (65, 96)      # zeroed point columns of (8, 130): mid-chunk, chunk boundary
 LOCAL_BA_SHAPE = (48, 2048)     # (local_kfs + local_ref_kfs, local_mps), default Capacity
 GLOBAL_BA_SHAPE = (256, 8192)   # (max_kfs, max_mps): the loop-closing slice's joint BA
 MAP_FRAMES = 60
@@ -112,6 +118,7 @@ JAX_ATE_MAX = 0.015198489440248385
 INT8_OPS_PER_S = 1979e12
 K2_GATE_OPS = 10
 K2_SHAPES = [(8192, 1000), (8191, 997), (200, 300)]
+K2_TIED_N2 = (1, 31, 32, 33, 997)   # columns of the all-ties check (pool=1), around a warp's 32
 MAP_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke" / "map"
 LOC_FRAMES = range(10, 50)
 RESUME_FRAMES = range(30, 60)
@@ -150,6 +157,9 @@ def phase_build():
     libs = build_all()
     load_library("fast_nms")
     log(f"build: {sorted(libs)} in {time.perf_counter() - t0:.2f} s")
+    for name, lib in sorted(libs.items()):
+        for k in ptxas_summary(lib.with_suffix(".log").read_text()):
+            log(f"ptxas {name}: " + json.dumps(k))
 
 
 def events_ms(fn, reps=50, warmup=5):
@@ -427,31 +437,46 @@ def phase_schur():
         inputs[(K, M)] = (Hpx, Hxx_inv)
     # zeroed point columns (invalid points) add exact zeros
     Hpx, Hxx_inv = inputs[(8, 130)]
-    Hz = Hpx.clone()
-    Hz[:, :, 65:] = 0.0
-    full = K3.point_reduction(Hz, Hxx_inv)
-    half = K3.point_reduction(Hz[:, :, :65].contiguous(), Hxx_inv[:65].contiguous())
-    torch.cuda.synchronize()
-    if not torch.equal(full, half):
-        raise SystemExit("chip_smoke: zeroed point columns changed the Schur kernel's result")
+    for z in SCHUR_ZERO_FROM:
+        Hz = Hpx.clone()
+        Hz[:, :, z:] = 0.0
+        full = K3.point_reduction(Hz, Hxx_inv)
+        part = K3.point_reduction(Hz[:, :, :z].contiguous(), Hxx_inv[:z].contiguous())
+        torch.cuda.synchronize()
+        if not torch.equal(full, part):
+            raise SystemExit(f"chip_smoke: point columns zeroed from {z} changed the Schur "
+                             "kernel's result")
+    # the kernel mirrors its upper tiles: S_red[k, l] = S_red[l, k]ᵀ bitwise for k != l
+    for K, M in SCHUR_SHAPES:
+        S = K3.point_reduction(*inputs[(K, M)])
+        off = ~torch.eye(K, dtype=torch.bool, device=dev)
+        if not torch.equal(S[off], S.permute(1, 0, 3, 2)[off]):
+            raise SystemExit(f"chip_smoke: Schur S is not symmetric at (K, M) = ({K}, {M})")
     log("kernel: Schur within " + json.dumps(
-        {f"{K}x{M}": rel for (K, M), (_, rel) in errs.items()}) + " of plain (f64); zero columns exact")
+        {f"{K}x{M}": rel for (K, M), (_, rel) in errs.items()})
+        + " of plain (f64); zero columns exact; off-diagonal blocks symmetric")
 
     times = {}
     for K, M in (LOCAL_BA_SHAPE, GLOBAL_BA_SHAPE):
         Hpx, Hxx_inv = inputs[(K, M)]
         bound, by = schur_bound(K, M)
+        fns = dict(
+            kernel=lambda: K3.point_reduction(Hpx, Hxx_inv),
+            plain=lambda: K3.point_reduction_plain(Hpx, Hxx_inv),
+            library=lambda: torch.einsum("kamb,mbd,lcmd->klac", Hpx, Hxx_inv, Hpx),
+        )
+        t = {name: (graph_ms(f, inner=10, reps=20), events_ms(f, reps=20))
+             for name, f in fns.items()}
         times[(K, M)] = dict(
-            ms=graph_ms(lambda: K3.point_reduction(Hpx, Hxx_inv), inner=10, reps=20),
-            eager_ms=events_ms(lambda: K3.point_reduction(Hpx, Hxx_inv), reps=20),
-            plain_ms=graph_ms(lambda: K3.point_reduction_plain(Hpx, Hxx_inv), inner=10, reps=20),
-            plain_eager_ms=events_ms(lambda: K3.point_reduction_plain(Hpx, Hxx_inv), reps=20),
-            library_ms=events_ms(lambda: torch.einsum("kamb,mbd,lcmd->klac", Hpx, Hxx_inv, Hpx),
-                                 reps=20),
+            ms=t["kernel"][0], eager_ms=t["kernel"][1],
+            plain_ms=t["plain"][0], plain_eager_ms=t["plain"][1],
+            library_ms=t["library"][0], library_eager_ms=t["library"][1],
+            below_library=t["kernel"][0] < t["library"][0],
             bound_ms=bound, bound_by=by, max_abs_err=errs[(K, M)][0],
             rel_err=errs[(K, M)][1],
         )
-        log(f"kernel times Schur (K, M) = ({K}, {M}) (ms): " + json.dumps(times[(K, M)]))
+        log(f"kernel times Schur (K, M) = ({K}, {M}) (ms; graph, and eager_): "
+            + json.dumps(times[(K, M)]))
     return times
 
 
@@ -608,6 +633,9 @@ def phase_k2():
     for i, (N1, N2) in enumerate(K2_SHAPES):
         x = [a.cuda() for a in k2_inputs(N1, N2, seed=i)]
         errs[(N1, N2)] = k2_check(x, f"random ({N1}, {N2})")
+    for N2 in K2_TIED_N2:
+        x = [a.cuda() for a in k2_inputs(300, N2, seed=5, pool=1)]
+        k2_check(x, f"all distances tied (300, {N2})")
     x = [a.cuda() for a in k2_inputs(300, 200, seed=9)]
     x[2] = torch.full_like(x[2], -1.0)          # a negative window admits nothing
     k2_check(x, "all-gated rows")
@@ -615,7 +643,8 @@ def phase_k2():
     if not (bool((best == 1e9).all()) and bool((second == 1e9).all())
             and not bool(arg.any()) and not bool(arg2.any())):
         raise SystemExit("chip_smoke: K2 all-gated rows are not (1e9, 1e9, 0, 0)")
-    log(f"kernel: K2 equal to plain on all four outputs at {K2_SHAPES} and all-gated rows")
+    log(f"kernel: K2 equal to plain on all four outputs at {K2_SHAPES}, with all distances "
+        f"tied at N2 = {K2_TIED_N2}, and on all-gated rows")
     return max(errs.values())
 
 
@@ -875,7 +904,8 @@ def main():
         max_abs_err=loc["max_abs_err"], rel_err=loc["rel_err"], real_ba_max_abs_err=real_err,
         ms=loc["ms"], eager_ms=loc["eager_ms"], plain_ms=loc["plain_ms"],
         plain_eager_ms=loc["plain_eager_ms"], bound_ms=loc["bound_ms"],
-        bound_by=loc["bound_by"], library_ms=loc["library_ms"], shape_KM=LOCAL_BA_SHAPE,
+        bound_by=loc["bound_by"], library_ms=loc["library_ms"],
+        library_eager_ms=loc["library_eager_ms"], shape_KM=LOCAL_BA_SHAPE,
         global_ba=dict(glob, shape_KM=GLOBAL_BA_SHAPE), card=smi,
     )
     match_kernel = dict(

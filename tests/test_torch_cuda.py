@@ -85,32 +85,52 @@ def _schur_inputs(K, M, seed=0):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("K,M", [(4, 12), (8, 130), (24, 512), (48, 2048), (33, 1001)])
+@pytest.mark.parametrize("K,M", [(4, 12), (8, 130), (24, 512), (48, 2048), (33, 1001),
+                                 (256, 8192)])
 def test_schur_kernel_matches_plain_on_card(card, K, M):
-    """Within 1e-5 of the plain einsum pair's largest entry (the JAX
-    package's kernel tolerance); the same bits on a second launch."""
+    """Within 1e-5 of the largest entry of the plain einsum pair evaluated
+    in f64 on the same f32 inputs (the JAX package's kernel tolerance); the
+    same bits on a second launch."""
     Hpx, Hxx_inv = (a.to(card) for a in _schur_inputs(K, M))
     before = K3.point_reduction.launches
     got = K3.point_reduction(Hpx, Hxx_inv)
     again = K3.point_reduction(Hpx, Hxx_inv)
-    want = K3.point_reduction_plain(Hpx, Hxx_inv)
+    want = K3.point_reduction_plain(Hpx.double(), Hxx_inv.double())
     torch.cuda.synchronize()
     assert K3.point_reduction.launches == before + 2
     assert got.shape == (K, K, 3, 3)
-    assert float((got - want).abs().max() / want.abs().max()) <= 1e-5
+    assert float((got.double() - want).abs().max() / want.abs().max()) <= 1e-5
     assert torch.equal(got, again)
 
 
 @pytest.mark.cuda
-def test_schur_kernel_zero_columns_add_nothing(card):
-    Hpx, _ = _schur_inputs(6, 40)
-    Hpx[:, :, 20:] = 0.0
-    Hxx_inv = torch.eye(3).expand(40, 3, 3).contiguous()
+@pytest.mark.parametrize("K,M,zero_from,spd", [
+    (6, 40, 20, False), (8, 130, 65, True), (8, 130, 96, True), (8, 132, 64, True),
+], ids=["identity", "mid_chunk", "chunk_boundary", "aligned"])
+def test_schur_kernel_zero_columns_add_nothing(card, K, M, zero_from, spd):
+    """Point columns zeroed from ``zero_from`` on give the same bits as the
+    call that stops there: the kernel's chunks sit at absolute offsets."""
+    Hpx, Hxx_inv = _schur_inputs(K, M)
+    Hpx[:, :, zero_from:] = 0.0
+    if not spd:
+        Hxx_inv = torch.eye(3).expand(M, 3, 3).contiguous()
     Hpx, Hxx_inv = Hpx.to(card), Hxx_inv.to(card)
     full = K3.point_reduction(Hpx, Hxx_inv)
-    half = K3.point_reduction(Hpx[:, :, :20].contiguous(), Hxx_inv[:20].contiguous())
+    part = K3.point_reduction(Hpx[:, :, :zero_from].contiguous(),
+                              Hxx_inv[:zero_from].contiguous())
     torch.cuda.synchronize()
-    assert torch.equal(full, half)
+    assert torch.equal(full, part)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K,M", [(4, 12), (33, 1001), (48, 2048)])
+def test_schur_kernel_symmetric_off_diagonal_blocks(card, K, M):
+    """The kernel computes the upper triangle of tiles and mirrors it, so
+    S_red[k, l] is bitwise S_red[l, k]ᵀ for every k != l."""
+    Hpx, Hxx_inv = (a.to(card) for a in _schur_inputs(K, M, seed=1))
+    S = K3.point_reduction(Hpx, Hxx_inv)
+    off = ~torch.eye(K, dtype=torch.bool, device=card)
+    assert torch.equal(S[off], S.permute(1, 0, 3, 2)[off])
 
 
 @pytest.mark.cuda
@@ -150,11 +170,15 @@ def test_schur_kernel_rejects_what_it_does_not_take(card):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("N1,N2", [(8192, 1000), (8191, 997), (1, 1)])
-def test_windowed_top2_matches_plain_on_card(card, N1, N2):
+@pytest.mark.parametrize("N1,N2,pool", [
+    (8192, 1000, 64), (8191, 997, 64), (1, 1, 64),
+    (300, 1, 1), (300, 31, 1), (300, 32, 1), (300, 33, 1), (300, 997, 1),
+])
+def test_windowed_top2_matches_plain_on_card(card, N1, N2, pool):
     """All four outputs exactly equal to the plain version on the card,
-    ties included; the same bits on a second launch."""
-    x = [a.to(card) for a in k2_inputs(N1, N2)]
+    ties included (with ``pool=1`` every gated distance ties); the same
+    bits on a second launch."""
+    x = [a.to(card) for a in k2_inputs(N1, N2, pool=pool)]
     before = K2.windowed_top2.launches
     got = K2.windowed_top2(*x)
     again = K2.windowed_top2(*x)
@@ -163,8 +187,33 @@ def test_windowed_top2_matches_plain_on_card(card, N1, N2):
     assert K2.windowed_top2.launches == before + 2
     for g, a, w in zip(got, again, want):
         assert g.dtype == w.dtype and torch.equal(g, w) and torch.equal(g, a)
-    if N1 > 1:
+    if N2 >= 997:
         assert int((got[0] < 1e9).sum()) > 100 and bool((got[0] == got[1]).any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pool", [1, 64])
+@pytest.mark.parametrize("cols", [[40, 41, 45, 47, 63], [3, 70, 500, 996],
+                                  [0, 31, 32, 33, 995, 996], list(range(5, 997, 9))],
+                         ids=["one_group", "spread", "group_edges", "many"])
+def test_windowed_top2_gated_columns_of_one_row(card, cols, pool):
+    """Row 0's gated columns inside one 32-column group of the kernel's
+    walk, spread across groups, on group edges, or more than its queue
+    takes at once: all four outputs equal to the plain version."""
+    N2 = 997
+    x = k2_inputs(16, N2, seed=4, pool=pool)
+    x[5][0] = True
+    x[7] = torch.full((N2, 2), 1e4)               # every column far from every row ...
+    x[7][cols] = x[1][0]                          # ... but these, on row 0's prediction
+    x[8] = torch.full((N2,), int(x[3][0]), dtype=torch.int32)
+    x[9] = torch.ones(N2, dtype=torch.bool)
+    x = [a.to(card) for a in x]
+    got = K2.windowed_top2(*x)
+    want = K2.windowed_top2_plain(*x)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert int(got[2][0]) in cols and int(got[3][0]) in cols
 
 
 @pytest.mark.cuda
