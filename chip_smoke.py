@@ -11,15 +11,19 @@ a nonzero exit if it fails:
    and prints ptxas's report of each kernel: registers, static shared
    memory and spills;
 3. kernel against plain: the FAST+NMS kernel against its plain PyTorch
-   version on the card, bitwise over the whole map, at the five pyramid
-   levels of a rendered bench frame and on a random 231x309 image; times
-   both with CUDA events;
+   version on the card, bitwise over the whole map: the five pyramid levels
+   of a rendered bench frame in one launch, a ragged table of random levels
+   in one launch, a one-level call on a random 231x309 image, and the
+   levels of a uniform-noise frame; times a frame's launch in a CUDA graph
+   (the bench frame and the noise frame) and eagerly, each level as a
+   one-level call, and the plain version, with CUDA events;
 4. extractor: the ORB extractor on the card against the same extractor on
    the CPU, on one bench frame;
 5. main path: ORB extraction and the tracking step over 20 frames of the
    synthetic bench world at 640x480, 1000 features, 5 levels, re-seeding
    the reference frame where the step asks for a keyframe; checks the
-   launches, poses, feature and match counts and the keyframe timing;
+   launches (one FAST+NMS launch a frame), poses, feature and match counts
+   and the keyframe timing;
 6. Schur kernel against plain: the Schur point-reduction kernel against
    its plain PyTorch version (the einsum pair) on random SPD systems at
    (K, M) = (4, 12), (8, 130), (24, 512), (48, 2048), (256, 8192), on
@@ -94,6 +98,10 @@ F32_OPS_PER_S = 67e12
 FAST_BYTES_PER_PX = 16
 FAST_OPS_PER_PX = 16 + 16 + 32 + 32 + 30 + 1 + 64 + 2 + 2 * 11
 T_HIGH, T_LOW = 20.0, 7.0
+# levels of the ragged K1 table: tile indices crossing level boundaries,
+# levels smaller than a 64x32 output tile, one 40x72 input tile, and
+# (32, 64) exactly one output tile
+K1_RAGGED = [(231, 309), (17, 33), (8, 8), (40, 72), (32, 64)]
 N_FRAMES = 20
 N_DRAWS = 8        # RANSAC draws of the main path
 # Schur kernel: the JAX package's own kernel tolerance
@@ -205,36 +213,57 @@ def sprinkled_image(rng, H, W):
     return img
 
 
+def k1_check(got, levels, what):
+    """K1's maps against the plain version, level by level: bitwise equal.
+    Returns the largest |difference| (0 when equal)."""
+    max_err = 0.0
+    for img, maps in zip(levels, got):
+        want = K1.fast_nms_plain(img, T_HIGH, T_LOW)
+        torch.cuda.synchronize()
+        for name, g, w in zip(("nms_high", "nms_low", "raw_low"), maps, want):
+            err = float((g - w).abs().max())
+            max_err = max(max_err, err)
+            if g.shape != img.shape or not torch.equal(g, w):
+                raise SystemExit(f"chip_smoke: K1 {name} differs from plain at "
+                                 f"{tuple(img.shape)} of {what}: max |diff| {err}")
+    return max_err
+
+
 def phase_kernel(extract, world, gt0):
     """K1 against its plain version, and the times of both."""
     img0 = torch.from_numpy(world.render(gt0)).cuda()
     levels = [lv.contiguous() for lv in extract.pyramid(img0)]
-    extra = torch.from_numpy(sprinkled_image(np.random.default_rng(0), 231, 309)).cuda()
-    max_err = 0.0
-    for img in levels + [extra]:
-        got = K1.fast_nms(img, T_HIGH, T_LOW)
-        want = K1.fast_nms_plain(img, T_HIGH, T_LOW)
-        torch.cuda.synchronize()
-        for name, g, w in zip(("nms_high", "nms_low", "raw_low"), got, want):
-            err = float((g - w).abs().max())
-            max_err = max(max_err, err)
-            if not torch.equal(g, w):
-                raise SystemExit(f"chip_smoke: K1 {name} differs from plain at "
-                                 f"{tuple(img.shape)}: max |diff| {err}")
-        if int((got[1] > 0).sum()) == 0:
-            raise SystemExit(f"chip_smoke: K1 found no corner at {tuple(img.shape)}")
+    rng = np.random.default_rng(0)
+    extra = torch.from_numpy(sprinkled_image(rng, 231, 309)).cuda()
+    ragged = [torch.from_numpy(rng.integers(0, 256, s).astype(np.float32)).cuda()
+              for s in K1_RAGGED]
+    # the kernel skips the full test where the compass pre-test fails, as on
+    # the rendered frame's flat background; uniform noise runs it nearly
+    # everywhere
+    noise = [lv.contiguous() for lv in extract.pyramid(torch.from_numpy(
+        rng.integers(0, 256, tuple(img0.shape)).astype(np.float32)).cuda())]
+    n0 = K1.fast_nms.launches
+    bench = K1.fast_nms_levels(levels, T_HIGH, T_LOW)
+    max_err = max(
+        k1_check(bench, levels, "the bench frame"),
+        k1_check(K1.fast_nms_levels(ragged, T_HIGH, T_LOW), ragged, "the ragged table"),
+        k1_check([K1.fast_nms(extra, T_HIGH, T_LOW)], [extra], "a one-level call"),
+        k1_check(K1.fast_nms_levels(noise, T_HIGH, T_LOW), noise, "a noise frame"))
+    if K1.fast_nms.launches != n0 + 4:
+        raise SystemExit(f"chip_smoke: K1 launched {K1.fast_nms.launches - n0} times "
+                         "for 4 calls")
+    if any(int((lo > 0).sum()) == 0 for _, lo, _ in bench):
+        raise SystemExit("chip_smoke: K1 found no corner on a level of the bench frame")
     shapes = [tuple(lv.shape) for lv in levels]
-    log(f"kernel: K1 bitwise equal to plain on {shapes} and (231, 309)")
-
-    def frame(f):
-        return lambda: [f(lv, T_HIGH, T_LOW) for lv in levels]
-
+    log(f"kernel: K1 bitwise equal to plain on {shapes} in one launch, on {K1_RAGGED} "
+        "in one launch, on (231, 309) alone and on a noise frame's levels")
     t = dict(
         level_ms=[graph_ms(lambda lv=lv: K1.fast_nms(lv, T_HIGH, T_LOW)) for lv in levels],
-        ms=graph_ms(frame(K1.fast_nms)),
-        eager_ms=events_ms(frame(K1.fast_nms)),
-        plain_ms=graph_ms(frame(K1.fast_nms_plain)),
-        plain_eager_ms=events_ms(frame(K1.fast_nms_plain)),
+        ms=graph_ms(lambda: K1.fast_nms_levels(levels, T_HIGH, T_LOW)),
+        noise_ms=graph_ms(lambda: K1.fast_nms_levels(noise, T_HIGH, T_LOW)),
+        eager_ms=events_ms(lambda: K1.fast_nms_levels(levels, T_HIGH, T_LOW), reps=200),
+        plain_ms=graph_ms(lambda: K1.fast_nms_levels_plain(levels, T_HIGH, T_LOW)),
+        plain_eager_ms=events_ms(lambda: K1.fast_nms_levels_plain(levels, T_HIGH, T_LOW)),
     )
     px = sum(h * w for h, w in shapes)
     bytes_s = FAST_BYTES_PER_PX * px / HBM_BYTES_PER_S
@@ -245,7 +274,8 @@ def phase_kernel(extract, world, gt0):
         bound_by="bytes" if bytes_s >= ops_s else "operations",
     )
     log("kernel times (ms per 5-level frame): " + json.dumps(
-        {k: t[k] for k in ("ms", "eager_ms", "plain_ms", "plain_eager_ms", "bound_ms")}))
+        {k: t[k] for k in ("ms", "noise_ms", "eager_ms", "plain_ms", "plain_eager_ms",
+                           "bound_ms", "level_ms")}))
     return t
 
 
@@ -366,9 +396,9 @@ def phase_main_path(cfg, oc, extract, world, gt):
     run = run_path(cfg, oc, extract, imgs, odos, gt, seed=0)
     launches = K1.fast_nms.launches
     log("main path: " + json.dumps(dict(run, k1_launches=launches)))
-    if launches != 5 * len(imgs):
+    if launches != len(imgs):
         raise SystemExit(f"chip_smoke: K1 launched {launches} times, "
-                         f"want 5 per frame x {len(imgs)}")
+                         f"want one a frame x {len(imgs)}")
 
     # The keyframe request depends on the RANSAC draw: in the JAX package
     # the first comes at frame 11 for most draws, with >= 150 matches every
@@ -566,9 +596,9 @@ def phase_mapping(cfg, world):
     k1, k2, k3 = K1.fast_nms.launches, K2.windowed_top2.launches, K3.point_reduction.launches
     log("mapping: " + json.dumps(dict(run, k1_launches=k1, k2_launches=k2, k3_launches=k3,
                                       insert_projection_matches=im.calls)))
-    if k1 != 5 * MAP_FRAMES:
+    if k1 != MAP_FRAMES:
         raise SystemExit(f"chip_smoke: K1 launched {k1} times in the SLAM loop, "
-                         f"want 5 per frame x {MAP_FRAMES}")
+                         f"want one a frame x {MAP_FRAMES}")
     if k2 != im.calls or k2 < 1:
         raise SystemExit(f"chip_smoke: K2 launched {k2} times in the SLAM loop for "
                          f"{im.calls} projection matches of keyframe insertion")
@@ -788,9 +818,9 @@ def phase_localization(cfg, world, slam):
     if k2 != run["projection_matches"] or k2 < len(LOC_FRAMES) - 1:
         raise SystemExit(f"chip_smoke: K2 launched {k2} times for "
                          f"{run['projection_matches']} projection matches")
-    if k1 != 5 * len(LOC_FRAMES):
+    if k1 != len(LOC_FRAMES):
         raise SystemExit(f"chip_smoke: K1 launched {k1} times in localization, "
-                         f"want 5 per frame x {len(LOC_FRAMES)}")
+                         f"want one a frame x {len(LOC_FRAMES)}")
     last = LOC_FRAMES[-1]
     log("localization frame profile: " + json.dumps(
         profile_frame(run_localize.last, imgs[last], odo[last])))
@@ -821,7 +851,7 @@ def phase_localization(cfg, world, slam):
     )
     log("kernel times K2 (ms) on the first tracked frame: " + json.dumps(t))
 
-    return k2, t, phase_resume(cfg, imgs, odo, gt_map)
+    return k1, k2, t, phase_resume(cfg, imgs, odo, gt_map)
 
 
 def phase_resume(cfg, imgs, odo, gt_map):
@@ -864,7 +894,7 @@ def phase_resume(cfg, imgs, odo, gt_map):
                          f"error <= {1.5 * JAX_RESUME_ERR_MAX})")
     # every projection match is a K2 launch: the relocalization's and one
     # for each keyframe insertion
-    if k1 != 5 * len(RESUME_FRAMES) or pm.calls < 1 or im.calls < 1 or (
+    if k1 != len(RESUME_FRAMES) or pm.calls < 1 or im.calls < 1 or (
             k2 != pm.calls + im.calls) or (
             run["n_local_ba"] < 1 or k3 != cfg.local_iter * run["n_local_ba"]):
         raise SystemExit(f"chip_smoke: resume launches K1 {k1}, K2 {k2} for {pm.calls} + "
@@ -886,13 +916,14 @@ def main():
     ts = phase_schur()
     slam, run, k1_map, k2_map, k3_map, real_err = phase_mapping(cfg, world)
     k2_err = phase_k2()
-    k2_loc, t2, res = phase_localization(cfg, world, slam)
+    k1_loc, k2_loc, t2, res = phase_localization(cfg, world, slam)
     kernel = dict(
         name="fast_nms", route="cuda", source="se2lam_tpu_torch/csrc/fast_nms.cu",
         replaces="se2lam_tpu/frontend/pallas_fast.py:101", launches=k1_map,
-        launches_tracking_path=launches,
+        launches_tracking_path=launches, launches_localization=k1_loc,
+        launches_resume=res["k1_launches"],
         max_abs_err=t["max_abs_err"], max_abs_diff=t["max_abs_err"],
-        ms=t["ms"], level_ms=t["level_ms"], eager_ms=t["eager_ms"],
+        ms=t["ms"], level_ms=t["level_ms"], noise_ms=t["noise_ms"], eager_ms=t["eager_ms"],
         plain_ms=t["plain_ms"], plain_eager_ms=t["plain_eager_ms"],
         bound_ms=t["bound_ms"], bound_us=1e3 * t["bound_ms"], bound_by=t["bound_by"],
         library_ms=None, px_per_frame=t["px"], card=smi,

@@ -8,8 +8,9 @@ top-k, intensity-centroid orientation from disc-moment weights, and a
 256-bit steered BRIEF with the 7x7 Gaussian blur folded into a 32-bin
 pattern bank — written for a GPU:
 
-- FAST+NMS runs in the hand-written CUDA kernel on the card
-  (``fast_nms.py``), in its plain version on the CPU;
+- FAST+NMS runs in the hand-written CUDA kernel on the card, one launch
+  for all pyramid levels of a frame (``fast_nms.py``), in its plain
+  version on the CPU;
 - the per-keypoint patch is a direct gather with clamped indices where
   the TPU version used one-hot matmuls; pixels are rounded through bf16
   as there, because the BRIEF bits depend on it;
@@ -32,7 +33,7 @@ import torch
 
 from ..device import resolve_device
 from ..ops.topk import top_k
-from .fast_nms import fast_nms
+from .fast_nms import fast_nms, fast_nms_levels
 from .pattern import HALF_PATCH, N_BITS, PATTERN_X, PATTERN_Y
 
 __all__ = ["OrbConfig", "OrbFeatures", "OrbExtractor", "pack_bits"]
@@ -337,16 +338,18 @@ class OrbExtractor(torch.nn.Module):
             levels.append((Rh @ img) @ Rw.T)
         return levels
 
-    def extract_level(self, level_img, l: int):
+    def extract_level(self, level_img, l: int, maps=None):
         """Keypoints of pyramid level ``l`` from its image; a dict of the
-        level's slots (``quota`` of them), or None for a zero quota."""
+        level's slots (``quota`` of them), or None for a zero quota.
+        ``maps`` are the level's FAST+NMS maps where the caller has them
+        (``forward`` computes all levels' in one call), else computed here."""
         cfg = self.cfg
         quota = cfg.level_quotas[l]
         if quota <= 0:
             return None
-        nms_hi, nms_lo, sl_raw = fast_nms(
-            level_img.contiguous(), cfg.fast_high, cfg.fast_low
-        )
+        if maps is None:
+            maps = fast_nms(level_img.contiguous(), cfg.fast_high, cfg.fast_low)
+        nms_hi, nms_lo, sl_raw = maps
         ys, xs, ys_f, xs_f, resp, valid = _select_level_keypoints(
             cfg, nms_hi, nms_lo, sl_raw, quota
         )
@@ -374,11 +377,13 @@ class OrbExtractor(torch.nn.Module):
         return angle, (sel > 0).to(torch.uint8)
 
     def forward(self, img) -> OrbFeatures:
+        cfg = self.cfg
         img = torch.as_tensor(img, device=self.device).to(torch.float32)
-        outs = [
-            o for l, level_img in enumerate(self.pyramid(img))
-            if (o := self.extract_level(level_img, l)) is not None
-        ]
+        levels = self.pyramid(img)
+        live = [l for l, q in enumerate(cfg.level_quotas) if q > 0]
+        maps = fast_nms_levels([levels[l].contiguous() for l in live],
+                               cfg.fast_high, cfg.fast_low)
+        outs = [self.extract_level(levels[l], l, m) for l, m in zip(live, maps)]
         cat = {k: torch.cat([o[k] for o in outs]) for k in outs[0]}
         bits, valid = cat["bits"], cat["valid"]
         desc_pm1 = (1 - 2 * bits.to(torch.int8)).to(torch.int8)

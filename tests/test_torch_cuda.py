@@ -21,6 +21,8 @@ from se2lam_tpu_torch.solver import ba
 from se2lam_tpu_torch.solver import schur as K3
 
 BENCH_LEVELS = [(480, 640), (400, 533), (333, 444), (278, 370), (231, 309)]
+# one 40x72 input tile, and (32, 64) exactly one 64x32 output tile
+RAGGED_LEVELS = [(231, 309), (17, 33), (8, 8), (40, 72), (32, 64)]
 
 
 @pytest.fixture
@@ -55,11 +57,38 @@ def test_kernel_matches_plain_on_card(card, shape):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("shapes", [BENCH_LEVELS, RAGGED_LEVELS], ids=["bench", "ragged"])
+def test_levels_kernel_matches_plain_in_one_launch(card, shapes):
+    """All levels in one launch, each bitwise equal to the plain version
+    over its whole map: the bench's five levels, and a ragged table whose
+    tile index crosses level boundaries, with levels smaller than a tile
+    and one exactly a tile."""
+    rng = np.random.default_rng(4)
+    levels = [torch.from_numpy(sprinkled_image(rng, *s) if min(s) > 40 else
+                               rng.uniform(0, 255, s).astype(np.float32)).to(card)
+              for s in shapes]
+    before = K1.fast_nms.launches
+    got = K1.fast_nms_levels(levels, 20.0, 7.0)
+    torch.cuda.synchronize()
+    assert K1.fast_nms.launches == before + 1
+    for lv, maps in zip(levels, got):
+        for g, w in zip(maps, K1.fast_nms_plain(lv, 20.0, 7.0)):
+            assert g.shape == lv.shape and torch.equal(g, w)
+
+
+@pytest.mark.cuda
 def test_kernel_rejects_what_it_does_not_take(card):
     with pytest.raises(ValueError):
         K1.fast_nms(torch.zeros((64, 64), dtype=torch.float64, device=card), 20.0, 7.0)
     with pytest.raises(ValueError):
         K1.fast_nms(torch.zeros((64, 128), device=card)[:, ::2], 20.0, 7.0)
+    ok = torch.zeros((64, 64), device=card)
+    for levels in ([ok, torch.zeros((64, 64), dtype=torch.float64, device=card)],
+                   [ok, torch.zeros((64, 128), device=card)[:, ::2]],
+                   [ok, torch.zeros((64, 64))],
+                   [ok] * (K1.MAX_LEVELS + 1)):
+        with pytest.raises(ValueError):
+            K1.fast_nms_levels(levels, 20.0, 7.0)
 
 
 @pytest.mark.cuda
@@ -242,7 +271,8 @@ def test_windowed_top2_rejects_what_it_does_not_take(card):
 @pytest.mark.cuda
 def test_localizer_step_launches_k2_once(card):
     """One tracked Localizer frame on the card: one projection match, so
-    exactly one K2 launch (and 5 of K1 for the extraction)."""
+    exactly one K2 launch (and one of K1, for all pyramid levels of the
+    extraction)."""
     from se2lam_tpu_torch.localizer import Localizer
     from se2lam_tpu_torch.mapstate import empty_map
 
@@ -265,4 +295,4 @@ def test_localizer_step_launches_k2_once(card):
     loc.process(img, np.asarray([0.05, 0.0, 0.01], np.float32))
     torch.cuda.synchronize()
     assert K2.windowed_top2.launches == k2 + 1
-    assert K1.fast_nms.launches == k1 + 5
+    assert K1.fast_nms.launches == k1 + 1
