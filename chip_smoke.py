@@ -51,7 +51,29 @@ a nonzero exit if it fails:
    draws, every projection match a kernel launch, localized count and
    error against the JAX package's spread; ``SlamSystem.resume`` on the
    saved map over frames 30-59: relocalized frame, keyframes inserted,
-   every local BA descending, the launches of all three kernels.
+   every local BA descending, the launches of all three kernels;
+9. levels past the FAST+NMS kernel's 8-entry table: 9- and 10-level
+   pyramids of the bench frame, each level bitwise equal to the plain
+   version, two launches a frame, and the extractor's forward pass at
+   that depth;
+10. loop closing: ``SlamSystem(cfg)`` with its defaults (loops on) at the
+   bench configuration with the default ``Capacity`` (256 keyframes, 8192
+   points), the keyframe cadence (2-8 frames) and untouched loop gates of
+   the JAX package's reference-gates test, on that test's scene (a 72-frame
+   lap plus 24 revisit frames of ``SyntheticWorld(n_landmarks=1200,
+   room=10.0, seed=4)``), for 3 RANSAC draws: each closes a loop, its
+   corrected trajectory beats raw odometry, its keyframe count and ATE lie
+   inside the JAX package's spread; every launch of the three kernels is
+   counted, the Schur kernel's at the local-BA and the joint-GBA shapes
+   (256, 8192); the Schur kernel on the joint GBA's real damped system
+   against its plain version in f64, beside the f32 einsum's error on the
+   same inputs, and its times there; loop-stage (and within it the
+   verifications' and pose-only solves'), pose-graph, joint-GBA and
+   vocabulary-training times;
+11. capacity relief: the same scene and configuration, loops on, with the
+   banks cut to 16 keyframes and 2048 points: both reliefs run, the map's
+   tables stay consistent after every relief, the BoW bank's rows are
+   nonzero exactly on valid keyframes, the corrected trajectory is finite.
 
 The Schur kernel is held, on every system, to its plain version evaluated
 in f64 on the same f32 inputs (see ``schur_check``).
@@ -72,7 +94,8 @@ import numpy as np
 import torch
 
 from se2lam_tpu_torch import localizer as loc_mod
-from se2lam_tpu_torch import localmap, tracking
+from se2lam_tpu_torch import localmap, loopclose, tracking
+from se2lam_tpu_torch import vocab as vocab_mod
 from se2lam_tpu_torch.entry import default_cfg, entry
 from se2lam_tpu_torch.frontend import fast_nms as K1
 from se2lam_tpu_torch.frontend import windowed_match as K2
@@ -140,6 +163,27 @@ LOC_DRAWS = 3
 # a median error no worse than 1.5x the worst JAX draw.
 JAX_LOC_FIRST, JAX_LOC_N, JAX_LOC_ERR_MAX = 10, 40, 0.052635375410318375
 JAX_RESUME_FRAME, JAX_RESUME_KF, JAX_RESUME_ERR_MAX = 30, 2, 0.09130726009607315
+F1_LEVELS = (9, 10)     # past the kernel's 8-entry level table: two launches a frame
+# loop closing: the reference-gates scene of the JAX package's
+# tests/test_loop_reference_gates.py, its keyframe cadence, the bench widths
+LOOP_CADENCE = dict(min_frames_between_kf=2, max_frames_between_kf=8)
+LOOP_NOISE = (0.004, 0.002, 0.002)   # odometry noise per step, seed 3
+LOOP_DRAWS = 3
+# The JAX package's spread on these frames (examples/loop_draws.py, CPU, 4
+# draws): 28-29 keyframes, 2 loops closed in every draw, live ATE
+# 0.02551-0.03153 m, corrected ATE 0.01315-0.02227 m, raw odometry's
+# 0.03049 m. A card draw passes with a keyframe count in that range, at
+# least one loop, a corrected ATE below raw odometry's, and live and
+# corrected ATEs no worse than 1.5x the worst JAX draw.
+JAX_LOOP_KF = (28, 29)
+JAX_LOOP_ATE_MAX = 0.031525466523794274
+JAX_LOOP_ATE_CORRECTED_MAX = 0.022268728356580062
+# the joint GBA's Schur check: within 2x the f32 einsum's error from the
+# f64 plain version on the same inputs, and below 1e-4 of max|S|
+JOINT_SCHUR_REL_MAX = 1e-4
+# capacity relief on the same scene: bank sizes at which both reliefs run
+# (examples/loop_draws.py, CPU)
+RELIEF_KFS, RELIEF_MPS, RELIEF_FRAMES = 16, 2048, 72
 
 
 def log(msg):
@@ -697,17 +741,20 @@ def phase_save_reload(slam):
 
 
 class Counted:
-    """Counts the calls of a module-level function, and keeps the result
-    of the latest call (the wrapper adds no host synchronisation)."""
+    """Counts the calls of a module-level function, and keeps the arguments
+    of the first call and the result of the latest (the wrapper adds no
+    host synchronisation)."""
 
     def __init__(self, module, name):
         self.module, self.name = module, name
         self.orig = getattr(module, name)
-        self.calls, self.last = 0, None
+        self.calls, self.first, self.last = 0, None, None
 
     def __enter__(self):
         def counted(*args, **kw):
             self.calls += 1
+            if self.first is None:
+                self.first = (args, kw)
             self.last = self.orig(*args, **kw)
             return self.last
 
@@ -903,6 +950,247 @@ def phase_resume(cfg, imgs, odo, gt_map):
     return run
 
 
+def phase_f1(world):
+    """9- and 10-level pyramids of the bench frame: each level bitwise
+    equal to the plain version, one launch per group of 8 levels; the
+    extractor's forward pass launches the same two."""
+    out = {}
+    for n in F1_LEVELS:
+        cfg, oc = default_cfg(n_levels=n)
+        ext = OrbExtractor(oc)
+        img = torch.from_numpy(world.render(world.circle_trajectory(352, radius=2.5)[0])).cuda()
+        levels = [lv.contiguous() for lv in ext.pyramid(img)]
+        n0 = K1.fast_nms.launches
+        err = k1_check(K1.fast_nms_levels(levels, T_HIGH, T_LOW), levels, f"{n} levels")
+        n1 = K1.fast_nms.launches
+        feats = ext(img)
+        torch.cuda.synchronize()
+        n2 = K1.fast_nms.launches
+        if n1 - n0 != 2 or n2 - n1 != 2:
+            raise SystemExit(f"chip_smoke: {n} levels launched K1 {n1 - n0} times in one call "
+                             f"and {n2 - n1} in an extraction, want 2 and 2")
+        top = int((feats.octave[feats.valid] == n - 1).sum())
+        if top == 0:
+            raise SystemExit(f"chip_smoke: no keypoint on level {n - 1} of {n}")
+        out[n] = dict(max_abs_err=err, launches_call=n1 - n0, launches_extract=n2 - n1,
+                      top_level_keypoints=top)
+    log("F1: " + json.dumps(out))
+    return out
+
+
+def table_consistency(ms):
+    """The forward/inverse observation-table invariants of the JAX
+    package's tests/test_prune.check_consistency, vectorized: every live
+    inverse entry (point, slot) names a valid keyframe whose forward row
+    points back at the point, and every forward entry of a valid keyframe
+    names a valid point that lists it."""
+    obs_kf, obs_ft, kf_obs, n_obs, mv, kv = (
+        t.cpu().numpy().astype(np.int64) for t in (
+            ms.mp_obs_kf, ms.mp_obs_feat, ms.kf_obs_mp, ms.mp_n_obs, ms.mp_valid, ms.kf_valid))
+    mv, kv = mv.astype(bool), kv.astype(bool)
+    K, N = kf_obs.shape
+    live = (np.arange(obs_kf.shape[1])[None] < n_obs[:, None]) & mv[:, None]
+    m = np.nonzero(live)[0]
+    k, f = obs_kf[live], obs_ft[live]
+    if not ((k >= 0).all() and kv[k].all() and (kf_obs[k, f] == m).all()):
+        return False
+    kk, ff = np.nonzero((kf_obs >= 0) & kv[:, None])
+    mm = kf_obs[kk, ff]
+    return bool(mv[mm].all() and np.isin((mm * K + kk) * N + ff, (m * K + k) * N + f).all())
+
+
+def loop_frames(world):
+    lap = world.circle_trajectory(72)
+    gt = np.concatenate([lap, lap[:24]])
+    return gt, world.odometry(gt, noise=LOOP_NOISE, seed=3)
+
+
+def run_loop(cfg, imgs, odo, gt, seed):
+    """One pass of SlamSystem(cfg) with its defaults over the loop scene;
+    tracking's RANSAC draws seeded ``seed``, the loop closer's 42 + seed."""
+    slam = SlamSystem(cfg, generator=torch.Generator(device="cuda").manual_seed(seed))
+    lc = slam._loop_closer
+    lc.generator = torch.Generator(device="cuda").manual_seed(42 + seed)
+    slam.log_ba = True
+    with StageTimer(loopclose, "loop_stage") as st, \
+            StageTimer(loopclose, "verify_and_build_batch") as vb, \
+            StageTimer(loopclose, "solve_pose_only") as po, \
+            StageTimer(loopclose, "run_global_ba") as pg, \
+            StageTimer(loopclose, "run_global_ba_joint") as jg, \
+            StageTimer(vocab_mod, "train_vocab") as tv:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for img, o in zip(imgs, odo):
+            slam.process(img, o)
+        torch.cuda.synchronize()
+        loop_s = time.perf_counter() - t0
+        stage_ms, pg_ms, joint_ms, vocab_ms = st.ms(), pg.ms(), jg.ms(), tv.ms()
+        verify_ms, pose_only_ms = vb.ms(), po.ms()
+    est = np.asarray([p for _, p in slam.trajectory])
+    cor = slam.corrected_trajectory()
+    if not np.isfinite(est).all() or not np.isfinite(cor).all():
+        raise SystemExit(f"chip_smoke: loop draw {seed}: a pose is not finite")
+    for rec in slam.ba_log:
+        if not rec["chi2"] <= rec["chi2_init"]:
+            raise SystemExit(f"chip_smoke: loop draw {seed}: local BA did not descend: {rec}")
+    return slam, dict(
+        seed=seed, kf_frames=slam.kf_frame_ids, n_kf=len(slam.kf_frame_ids),
+        n_loops=lc.n_loops_closed, last_loop=lc.last_loop, renewal_gbas=lc.n_renewal_gbas,
+        n_local_ba=slam.n_local_ba, n_joint_gba=len(joint_ms), n_pose_graph=len(pg_ms),
+        vocab_trainings=lc.n_vocab_trainings, vocab_train_ms=vocab_ms,
+        ate=ate_se2(est[:, :2], gt[:, :2])[0],
+        ate_corrected=ate_se2(cor[:, 1:3], gt[:, :2])[0],
+        ate_odometry=ate_se2(odo[:, :2], gt[:, :2])[0],
+        loop_stage_ms_per_kf=float(np.median(stage_ms)), loop_stage_ms_max=max(stage_ms),
+        verify_build_ms_per_kf=float(np.median(verify_ms)),
+        pose_only_ms_per_call=float(np.median(pose_only_ms)), pose_only_calls=len(pose_only_ms),
+        pose_graph_ms=pg_ms, joint_gba_ms=joint_ms,
+        frames_per_s=len(imgs) / loop_s, loop_s=loop_s,
+    )
+
+
+def loop_draw_ok(run):
+    """The rule stated at JAX_LOOP_*."""
+    return (run["n_loops"] >= 1 and run["ate_corrected"] < run["ate_odometry"]
+            and JAX_LOOP_KF[0] <= run["n_kf"] <= JAX_LOOP_KF[1]
+            and run["ate"] <= 1.5 * JAX_LOOP_ATE_MAX
+            and run["ate_corrected"] <= 1.5 * JAX_LOOP_ATE_CORRECTED_MAX)
+
+
+def phase_loop(world):
+    """The counted loop-closing run (every kernel launch and the Schur
+    kernel's shapes), more RANSAC draws, then the Schur kernel on the
+    damped system of the first joint GBA of the counted run."""
+    dev = torch.device("cuda")
+    cfg = default_cfg()[0].replace(**LOOP_CADENCE)
+    gt, odo = loop_frames(world)
+    imgs = [torch.from_numpy(world.render(p)).to(dev) for p in gt]
+
+    # the shape of every Schur reduction the solver asks for (the kernel's
+    # own counter counts its launches)
+    shapes = []
+    reduce_orig = ba.schur_reduce
+
+    def reduce_spy(Hpp, bp, Hpx, Hxx_inv, bx):
+        shapes.append((Hpx.shape[0], Hpx.shape[2]))
+        return reduce_orig(Hpp, bp, Hpx, Hxx_inv, bx)
+
+    K1.fast_nms.launches = K2.windowed_top2.launches = K3.point_reduction.launches = 0
+    ba.schur_reduce = reduce_spy
+    try:
+        with Counted(localmap, "match_by_projection_streamed") as im, \
+                Counted(loopclose, "run_global_ba_joint") as joint_in:
+            slam, run = run_loop(cfg, imgs, odo, gt, seed=0)
+    finally:
+        ba.schur_reduce = reduce_orig
+    k1, k2, k3 = K1.fast_nms.launches, K2.windowed_top2.launches, K3.point_reduction.launches
+    joint_shape = (cfg.cap.max_kfs, cfg.cap.max_mps)
+    local_shape = (cfg.cap.local_kfs + cfg.cap.local_ref_kfs, cfg.cap.local_mps)
+    n_joint = sum(s == joint_shape for s in shapes)
+    log("loop: " + json.dumps(dict(run, k1_launches=k1, k2_launches=k2, k3_launches=k3,
+                                   k3_joint_launches=n_joint,
+                                   insert_projection_matches=im.calls)))
+    want_k3 = cfg.local_iter * run["n_local_ba"] + cfg.gm_joint_ba_iters * run["n_joint_gba"]
+    if (k1 != len(imgs) or k2 != im.calls or k2 < 1 or k3 != want_k3
+            or set(shapes) != {local_shape, joint_shape} or run["n_joint_gba"] < 1
+            or n_joint != cfg.gm_joint_ba_iters * run["n_joint_gba"]):
+        raise SystemExit(
+            f"chip_smoke: loop launches K1 {k1} (want {len(imgs)}), K2 {k2} for {im.calls} "
+            f"insertion matches, K3 {k3} (want {want_k3}) at shapes {sorted(set(shapes))}, "
+            f"{n_joint} at the joint-GBA shape {joint_shape} for {run['n_joint_gba']} joint GBAs")
+    runs = [run] + [run_loop(cfg, imgs, odo, gt, seed=s)[1] for s in range(1, LOOP_DRAWS)]
+    log("loop draws: " + json.dumps([(r["n_kf"], r["n_loops"], r["ate"], r["ate_corrected"],
+                                      r["ate_odometry"]) for r in runs]))
+    bad = [r["seed"] for r in runs if not loop_draw_ok(r)]
+    if bad:
+        raise SystemExit(f"chip_smoke: loop draws {bad} leave the JAX package's spread "
+                         f"(keyframes {JAX_LOOP_KF}, >= 1 loop, corrected ATE below odometry, "
+                         f"ATE <= {1.5 * JAX_LOOP_ATE_MAX}, corrected <= "
+                         f"{1.5 * JAX_LOOP_ATE_CORRECTED_MAX})")
+
+    # the Schur kernel on the first joint GBA's real damped system, against
+    # the plain version in f64, beside the f32 einsum pair on the same inputs
+    (ms_in, cfg_in), kw = joint_in.first[0][:2], joint_in.first[1]
+    c = tracking.constants(cfg, dev)
+    prob = loopclose._joint_problem(ms_in, cfg_in)
+    ba_cfg = loopclose._joint_ba_cfg(ms_in, cfg_in, kw.get("iters", cfg.gm_joint_ba_iters))
+    _, _, Hpx, Hxx_inv, _, _ = ba.damped_system(
+        prob, c["cam"], c["Tcb"], ba_cfg, torch.tensor(ba_cfg.lm_init_lambda, device=dev))
+    want = K3.point_reduction_plain(Hpx.double(), Hxx_inv.double())
+    scale = float(want.abs().max())
+    got = K3.point_reduction(Hpx, Hxx_inv)
+    plain32 = K3.point_reduction_plain(Hpx, Hxx_inv)
+    torch.cuda.synchronize()
+    k3_err = float((got.double() - want).abs().max())
+    einsum_err = float((plain32.double() - want).abs().max())
+    rel, einsum_rel = k3_err / scale, einsum_err / scale
+    if not (math.isfinite(rel) and rel <= 2 * einsum_rel and rel < JOINT_SCHUR_REL_MAX):
+        raise SystemExit(f"chip_smoke: Schur kernel on the joint GBA {tuple(Hpx.shape)}: relative "
+                         f"error {rel} (f32 einsum {einsum_rel}), want <= 2x the einsum's and "
+                         f"< {JOINT_SCHUR_REL_MAX}")
+    bound, by = schur_bound(Hpx.shape[0], Hpx.shape[2])
+    fns = dict(kernel=lambda: K3.point_reduction(Hpx, Hxx_inv),
+               plain=lambda: K3.point_reduction_plain(Hpx, Hxx_inv),
+               library=lambda: torch.einsum("kamb,mbd,lcmd->klac", Hpx, Hxx_inv, Hpx))
+    t = {name: (graph_ms(f, inner=10, reps=20), events_ms(f, reps=20)) for name, f in fns.items()}
+    joint = dict(
+        shape_KM=(Hpx.shape[0], Hpx.shape[2]), max_abs_err=k3_err, rel_err=rel,
+        einsum_f32_rel_err=einsum_rel, ms=t["kernel"][0], eager_ms=t["kernel"][1],
+        plain_ms=t["plain"][0], plain_eager_ms=t["plain"][1], library_ms=t["library"][0],
+        library_eager_ms=t["library"][1], bound_ms=bound, bound_by=by,
+        valid_points=int(prob.point_valid.sum()), valid_kfs=int(prob.pose_valid.sum()),
+        valid_obs=int(prob.obs_valid.sum()))
+    log("kernel: Schur on the joint GBA's real damped system (ms; graph, and eager_): "
+        + json.dumps(joint))
+    return dict(k1=k1, k2=k2, k3=k3, k3_joint=n_joint, run=run, joint=joint, draws=runs)
+
+
+def phase_relief(world):
+    """Both reliefs on the loop scene with the banks cut to RELIEF_KFS
+    keyframes and RELIEF_MPS points, loops on."""
+    import dataclasses
+
+    dev = torch.device("cuda")
+    cfg = default_cfg()[0].replace(**LOOP_CADENCE)
+    cfg = cfg.replace(cap=dataclasses.replace(cfg.cap, max_kfs=RELIEF_KFS, max_mps=RELIEF_MPS))
+    gt, odo = loop_frames(world)
+    gt, odo = gt[:RELIEF_FRAMES], odo[:RELIEF_FRAMES]
+    imgs = [torch.from_numpy(world.render(p)).to(dev) for p in gt]
+    slam = SlamSystem(cfg, generator=torch.Generator(device="cuda").manual_seed(0))
+    reliefs = []
+    for name in ("_relieve_capacity", "_relieve_mp_capacity"):
+        def checked(fn=getattr(slam, name), name=name):
+            out = fn()
+            reliefs.append((name, table_consistency(slam.ms)))
+            return out
+        setattr(slam, name, checked)
+    K1.fast_nms.launches = K2.windowed_top2.launches = K3.point_reduction.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for img, o in zip(imgs, odo):
+        slam.process(img, o)
+    torch.cuda.synchronize()
+    loop_s = time.perf_counter() - t0
+    k1, k2, k3 = K1.fast_nms.launches, K2.windowed_top2.launches, K3.point_reduction.launches
+    lc = slam._loop_closer
+    bank, valid = lc.bank.cpu().numpy(), slam.ms.kf_valid.cpu().numpy()
+    bank_ok = bool(np.any(bank[valid] != 0, axis=1).all() and not np.any(bank[~valid] != 0))
+    cor = slam.corrected_trajectory()
+    run = dict(capacity_compactions=slam.capacity_compactions,
+               mp_compactions=slam.mp_compactions, mp_culled_weak=slam.mp_culled_weak,
+               anchors_reanchored=slam.anchors_reanchored, n_kf_inserted=len(slam.kf_frame_ids),
+               kf_frames=slam.kf_frame_ids, reliefs_consistent=[ok for _, ok in reliefs],
+               bank_rows_match_valid=bank_ok, at_capacity=slam.at_capacity,
+               ate_corrected=ate_se2(cor[:, 1:3], gt[:, :2])[0], frames_per_s=len(gt) / loop_s,
+               k1_launches=k1, k2_launches=k2, k3_launches=k3)
+    log("relief: " + json.dumps(run))
+    if (slam.capacity_compactions < 1 or slam.mp_compactions < 1 or not reliefs
+            or not all(ok for _, ok in reliefs) or not bank_ok or not np.isfinite(cor).all()
+            or k1 != len(gt)):
+        raise SystemExit("chip_smoke: capacity relief failed its checks: " + json.dumps(run))
+    return run
+
+
 def main():
     smi = phase_device()
     phase_build()
@@ -917,12 +1205,19 @@ def main():
     slam, run, k1_map, k2_map, k3_map, real_err = phase_mapping(cfg, world)
     k2_err = phase_k2()
     k1_loc, k2_loc, t2, res = phase_localization(cfg, world, slam)
+    f1 = phase_f1(world)
+    loop_world = SyntheticWorld(cfg, n_landmarks=1200, room=10.0, seed=4)
+    lp = phase_loop(loop_world)
+    relief = phase_relief(loop_world)
     kernel = dict(
         name="fast_nms", route="cuda", source="se2lam_tpu_torch/csrc/fast_nms.cu",
         replaces="se2lam_tpu/frontend/pallas_fast.py:101", launches=k1_map,
         launches_tracking_path=launches, launches_localization=k1_loc,
-        launches_resume=res["k1_launches"],
-        max_abs_err=t["max_abs_err"], max_abs_diff=t["max_abs_err"],
+        launches_resume=res["k1_launches"], launches_loop=lp["k1"],
+        launches_relief=relief["k1_launches"],
+        launches_f1={n: v["launches_extract"] for n, v in f1.items()},
+        max_abs_err=max([t["max_abs_err"]] + [v["max_abs_err"] for v in f1.values()]),
+        max_abs_diff=t["max_abs_err"],
         ms=t["ms"], level_ms=t["level_ms"], noise_ms=t["noise_ms"], eager_ms=t["eager_ms"],
         plain_ms=t["plain_ms"], plain_eager_ms=t["plain_eager_ms"],
         bound_ms=t["bound_ms"], bound_us=1e3 * t["bound_ms"], bound_by=t["bound_by"],
@@ -937,12 +1232,15 @@ def main():
         plain_eager_ms=loc["plain_eager_ms"], bound_ms=loc["bound_ms"],
         bound_by=loc["bound_by"], library_ms=loc["library_ms"],
         library_eager_ms=loc["library_eager_ms"], shape_KM=LOCAL_BA_SHAPE,
-        global_ba=dict(glob, shape_KM=GLOBAL_BA_SHAPE), card=smi,
+        global_ba=dict(glob, shape_KM=GLOBAL_BA_SHAPE), launches_loop=lp["k3"],
+        launches_loop_joint_shape=lp["k3_joint"], launches_relief=relief["k3_launches"],
+        joint_gba=lp["joint"], card=smi,
     )
     match_kernel = dict(
         name="windowed_top2", route="cuda", source="se2lam_tpu_torch/csrc/windowed_top2.cu",
         replaces="se2lam_tpu/frontend/pallas_match.py:137", launches=k2_loc,
-        launches_mapping=k2_map, launches_resume=res["k2_launches"], max_abs_err=max(k2_err, t2["max_abs_err"]),
+        launches_mapping=k2_map, launches_resume=res["k2_launches"], launches_loop=lp["k2"],
+        launches_relief=relief["k2_launches"], max_abs_err=max(k2_err, t2["max_abs_err"]),
         ms=t2["ms"], eager_ms=t2["eager_ms"], plain_ms=t2["plain_ms"],
         plain_eager_ms=t2["plain_eager_ms"], bound_ms=t2["bound_ms"], bound_by=t2["bound_by"],
         bound_all_pairs_ms=t2["bound_all_pairs_ms"], gated_pairs=t2["gated_pairs"],

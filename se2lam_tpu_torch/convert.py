@@ -13,14 +13,17 @@ import torch
 from .config import Capacity, SystemConfig
 from .device import resolve_device
 from .frontend.orb import OrbFeatures
+from .loopclose import LoopCloser
 from .mapstate import MapState
 from .solver.ba import BAProblem
+from .solver.posegraph import PoseGraphProblem
 from .tracking import TrackState
 from .vocab import Vocabulary
 
 __all__ = [
     "orb_features_from_numpy", "track_state_from_numpy", "config_from_fields",
     "map_state_from_numpy", "ba_problem_from_numpy", "vocabulary_from_numpy",
+    "pose_graph_from_numpy", "loop_closer_from_numpy",
 ]
 
 
@@ -79,3 +82,26 @@ def vocabulary_from_numpy(vocab, device=None) -> Vocabulary:
     """Vocabulary from an object with ``words`` and ``idf``."""
     dev = resolve_device(device)
     return Vocabulary(*(_tensor(getattr(vocab, k), dev) for k in Vocabulary._fields))
+
+
+def pose_graph_from_numpy(prob, device=None) -> PoseGraphProblem:
+    """PoseGraphProblem from an object with the same fields."""
+    dev = resolve_device(device)
+    return PoseGraphProblem(*(_tensor(getattr(prob, k), dev) for k in PoseGraphProblem._fields))
+
+
+def loop_closer_from_numpy(cfg: SystemConfig, *, vocab, bank, last_loop=None, cooldown=False,
+                           n_inserts: int = 0, trained_at_nkf: int = 0, global_ba_iters=None,
+                           device=None) -> LoopCloser:
+    """A LoopCloser in the state of the JAX package's: its vocabulary
+    (``words``, ``idf``), BoW bank (K, W), last closure (cand, k) or None,
+    GlobalBA cooldown, and the retrain schedule (insertions counted, and
+    the count at the last training)."""
+    dev = resolve_device(device)
+    lc = LoopCloser(cfg, global_ba_iters=global_ba_iters, device=dev)
+    lc.vocab = vocabulary_from_numpy(vocab, dev)
+    lc.bank = _tensor(bank, dev)
+    lc.last_loop = None if last_loop is None else tuple(int(x) for x in last_loop)
+    lc._gba_cooldown = bool(cooldown)
+    lc._n_inserts, lc._trained_at_nkf = int(n_inserts), int(trained_at_nkf)
+    return lc

@@ -4,7 +4,8 @@
 level images on one device and returns a list of ``(nms_high, nms_low,
 raw_low)``, each (H, W) f32. A CPU list runs the plain version
 (``fast.py``) level by level; a CUDA list launches the hand-written kernel
-``csrc/fast_nms.cu`` once for all levels, or raises. There is no fallback
+``csrc/fast_nms.cu`` once for each group of at most ``MAX_LEVELS`` levels
+(once a frame at up to 8 pyramid levels), or raises. There is no fallback
 from the card to the plain version. ``fast_nms(img, t_high, t_low)`` is
 the one-level call.
 
@@ -21,7 +22,7 @@ border, so the difference from the Pallas kernel is not observable
 downstream.
 
 ``fast_nms.launches`` counts kernel launches (CUDA calls only): one per
-call of either function.
+group of levels.
 """
 from __future__ import annotations
 
@@ -81,9 +82,6 @@ def fast_nms_levels(levels, t_high: float, t_low: float):
         return fast_nms_levels_plain(levels, t_high, t_low)
     if dev.type != "cuda":
         raise ValueError(f"fast_nms: unsupported device {dev}")
-    if len(levels) > MAX_LEVELS:
-        raise ValueError(f"fast_nms_levels: the kernel takes at most {MAX_LEVELS} "
-                         f"levels, got {len(levels)}")
     for lv in levels:
         if lv.dtype != torch.float32 or lv.dim() != 2 or not lv.is_contiguous():
             raise ValueError(
@@ -93,16 +91,18 @@ def fast_nms_levels(levels, t_high: float, t_low: float):
     out = torch.empty((3, sum(sizes)), dtype=torch.float32, device=dev)
     maps = [part.view(3, *lv.shape).unbind(0)
             for lv, part in zip(levels, torch.split(out, sizes, dim=1))]
-    table = (_Level * len(levels))(*[
-        _Level(lv.data_ptr(), hi.data_ptr(), lo.data_ptr(), raw.data_ptr(), *lv.shape)
-        for lv, (hi, lo, raw) in zip(levels, maps)])
+    rows = [_Level(lv.data_ptr(), hi.data_ptr(), lo.data_ptr(), raw.data_ptr(), *lv.shape)
+            for lv, (hi, lo, raw) in zip(levels, maps)]
     fn = _kernel_fn()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(len(levels), table, float(t_high), float(t_low), stream)
-    if err != 0:
-        raise RuntimeError(f"fast_nms: kernel launch failed, cudaError {err}")
-    fast_nms.launches += 1
+        for g in range(0, len(rows), MAX_LEVELS):
+            group = rows[g:g + MAX_LEVELS]
+            err = fn(len(group), (_Level * len(group))(*group), float(t_high),
+                     float(t_low), stream)
+            if err != 0:
+                raise RuntimeError(f"fast_nms: kernel launch failed, cudaError {err}")
+            fast_nms.launches += 1
     return maps
 
 

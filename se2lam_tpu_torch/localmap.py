@@ -49,6 +49,11 @@ __all__ = [
     "LocalWindow",
     "build_local_ba",
     "run_local_ba",
+    "recompute_covis",
+    "cull_weak_mps",
+    "compact_mps",
+    "relieve_mp_pressure",
+    "compact_map",
 ]
 
 _I32 = torch.int32
@@ -559,6 +564,160 @@ def prune_redundant_kf(ms: MapState, cur_kf, protect=-1, *, cfg: SystemConfig,
         mp_n_obs=n_obs_new,
     )
     return _where_state(any_cand, pruned, ms), torch.where(any_cand, kid_c, -1)
+
+
+def recompute_covis(ms: MapState) -> MapState:
+    """The whole covisibility matrix rebuilt from the inverse observation
+    tables (>30% shared points, add_keyframe's criterion pairwise): shared
+    = OᵀO over the (M, K) observer one-hot. For operations that rewire
+    observations wholesale (map merging)."""
+    K, M = ms.K, ms.M
+    dev, dtype = ms.kf_pose.device, ms.kf_pose.dtype
+    obs_ok = (ms.mp_obs_kf >= 0) & ms.mp_valid[:, None]
+    O = torch.zeros((M, K), dtype=dtype, device=dev)
+    rows = torch.arange(M, device=dev)[:, None].expand_as(ms.mp_obs_kf)
+    O.index_put_((rows, ms.mp_obs_kf.clamp(min=0).long()), obs_ok.to(dtype), accumulate=True)
+    O = torch.clamp(O, max=1.0)
+    shared = O.T @ O                                    # (K, K), exact small integers
+    counts = torch.diagonal(shared)
+    min_c = torch.minimum(counts[:, None], counts[None, :])
+    ratio = shared / torch.clamp(min_c, min=1.0)
+    covis = ((ratio > 0.3) & (shared > 0) & ms.kf_valid[:, None] & ms.kf_valid[None, :]
+             & ~torch.eye(K, dtype=torch.bool, device=dev))
+    return ms._replace(covis=covis)
+
+
+def cull_weak_mps(ms: MapState, n_keep, protect_kf):
+    """Invalidate the weakest valid map points until ≤ ``n_keep`` live (the
+    map-point side of capacity relief): fewest observers first,
+    bad-parallax before good, oldest slot first among ties; points that
+    ``protect_kf`` (the tracking reference) observes are never culled. Both
+    observation tables are cleared for culled points.
+    Returns (MapState, n_culled)."""
+    M = ms.M
+    dev = ms.mp_pos.device
+    f32 = torch.float32
+    ref_row = _row(ms.kf_obs_mp, protect_kf)
+    obs_by_ref = _scatter(torch.zeros((M,), dtype=torch.bool, device=dev),
+                          torch.where(ref_row >= 0, ref_row, M), True)
+    score = ms.mp_n_obs.to(f32) + 16.0 * ms.mp_good_prl.to(f32) + 1e6 * obs_by_ref.to(f32)
+    score = torch.where(ms.mp_valid, score, torch.full_like(score, float("inf")))
+    n_valid = ms.mp_valid.sum(dtype=_I32)
+    n_cull = torch.clamp(n_valid - torch.as_tensor(n_keep, dtype=_I32, device=dev), min=0)
+    order = torch.argsort(score, stable=True)           # weakest first
+    cull = torch.zeros((M,), dtype=torch.bool, device=dev)
+    cull[order] = torch.arange(M, device=dev) < n_cull
+    cull = cull & ms.mp_valid & ~obs_by_ref
+    kf_obs = torch.where((ms.kf_obs_mp >= 0) & cull[ms.kf_obs_mp.clamp(min=0).long()],
+                         -1, ms.kf_obs_mp)
+    return ms._replace(
+        mp_valid=ms.mp_valid & ~cull,
+        kf_obs_mp=kf_obs,
+        mp_obs_kf=torch.where(cull[:, None], -1, ms.mp_obs_kf),
+        mp_obs_feat=torch.where(cull[:, None], -1, ms.mp_obs_feat),
+        mp_n_obs=torch.where(cull, 0, ms.mp_n_obs),
+    ), cull.sum(dtype=_I32)
+
+
+def _compaction(valid):
+    """(new slot of each old slot or -1, old slot of each new slot, live
+    mask of the new slots, live count) for a validity mask."""
+    n = valid.shape[0]
+    dev = valid.device
+    new = torch.where(valid, torch.cumsum(valid, 0, dtype=_I32) - 1, -1).to(_I32)
+    n_new = valid.sum(dtype=_I32)
+    old = _scatter(torch.zeros((n,), dtype=_I32, device=dev), torch.where(valid, new, n),
+                   torch.arange(n, dtype=_I32, device=dev))
+    return new, old.long(), torch.arange(n, device=dev) < n_new, n_new
+
+
+def _gather_live(x, old, live, fill=0):
+    """x[old] with the rows past the live count set to ``fill``."""
+    return torch.where(live.reshape((-1,) + (1,) * (x.dim() - 1)), x[old],
+                       torch.as_tensor(fill, dtype=x.dtype, device=x.device))
+
+
+def _remap_ref(x, new):
+    """Slot references through a compaction (-1 stays -1; dead refs die)."""
+    return torch.where(x >= 0, new[x.clamp(min=0).long()], -1)
+
+
+def _mp_gathered(ms: MapState, mp_old, mp_live, mp_main_kf, mp_obs_kf):
+    """The map-point fields of a compaction (observation lists with their
+    dead entries cleared and recounted)."""
+    g = _gather_live
+    obs_kf = g(mp_obs_kf, mp_old, mp_live, -1)
+    obs_ok = obs_kf >= 0
+    return dict(
+        mp_pos=g(ms.mp_pos, mp_old, mp_live),
+        mp_valid=mp_live,
+        mp_good_prl=g(ms.mp_good_prl, mp_old, mp_live, False),
+        mp_desc=g(ms.mp_desc, mp_old, mp_live),
+        mp_desc_votes=g(ms.mp_desc_votes, mp_old, mp_live),
+        mp_normal=g(ms.mp_normal, mp_old, mp_live),
+        mp_main_kf=g(mp_main_kf, mp_old, mp_live, -1),
+        mp_main_feat=g(ms.mp_main_feat, mp_old, mp_live, -1),
+        mp_main_octave=g(ms.mp_main_octave, mp_old, mp_live),
+        mp_min_dist=g(ms.mp_min_dist, mp_old, mp_live),
+        mp_max_dist=g(ms.mp_max_dist, mp_old, mp_live, float("inf")),
+        mp_obs_kf=obs_kf,
+        mp_obs_feat=torch.where(obs_ok, g(ms.mp_obs_feat, mp_old, mp_live, -1), -1),
+        mp_n_obs=obs_ok.sum(1, dtype=_I32),
+    )
+
+
+def compact_mps(ms: MapState) -> MapState:
+    """Renumber only the map-point slots so the valid ones are contiguous
+    from 0 (keyframes untouched; no host-side structure holds point slots)."""
+    mp_new, mp_old, mp_live, n_mp = _compaction(ms.mp_valid)
+    return ms._replace(kf_obs_mp=_remap_ref(ms.kf_obs_mp, mp_new), n_mp=n_mp,
+                       **_mp_gathered(ms, mp_old, mp_live, ms.mp_main_kf, ms.mp_obs_kf))
+
+
+def relieve_mp_pressure(ms: MapState, target, protect_kf):
+    """The map-point pressure response: force-cull the weakest points to ≤
+    ``target`` live (a no-op when holes alone suffice), then compact.
+    Returns (MapState, n_culled)."""
+    ms, n_culled = cull_weak_mps(ms, target, protect_kf)
+    return compact_mps(ms), n_culled
+
+
+def compact_map(ms: MapState):
+    """Renumber keyframe and map-point slots so the valid entries are
+    contiguous from 0, freeing the tail (the live-map form of the
+    reference's save-time renumbering, MapStorage::saveMap,
+    src/MapStorage.cpp:77-118). Returns (MapState, kf_new_of_old (K,),
+    mp_new_of_old (M,)), -1 for dead slots."""
+    kf_new, kf_old, kf_live, n_kf = _compaction(ms.kf_valid)
+    mp_new, mp_old, mp_live, n_mp = _compaction(ms.mp_valid)
+    g = _gather_live
+    covis = ms.covis[kf_old][:, kf_old] & kf_live[:, None] & kf_live[None, :]
+    out = ms._replace(
+        kf_pose=g(ms.kf_pose, kf_old, kf_live),
+        kf_odom=g(ms.kf_odom, kf_old, kf_live),
+        kf_valid=kf_live,
+        kf_xy=g(ms.kf_xy, kf_old, kf_live),
+        kf_octave=g(ms.kf_octave, kf_old, kf_live),
+        kf_angle=g(ms.kf_angle, kf_old, kf_live),
+        kf_feat_valid=g(ms.kf_feat_valid, kf_old, kf_live, False),
+        kf_desc=g(ms.kf_desc, kf_old, kf_live),
+        kf_obs_mp=_remap_ref(g(ms.kf_obs_mp, kf_old, kf_live, -1), mp_new),
+        kf_view_mp=g(ms.kf_view_mp, kf_old, kf_live),
+        kf_view_info=g(ms.kf_view_info, kf_old, kf_live),
+        kf_pre_next=_remap_ref(g(ms.kf_pre_next, kf_old, kf_live, -1), kf_new),
+        kf_pre_meas=g(ms.kf_pre_meas, kf_old, kf_live),
+        kf_pre_cov=g(ms.kf_pre_cov, kf_old, kf_live),
+        covis=covis,
+        ftr_i=_remap_ref(torch.where(ms.ftr_valid, ms.ftr_i, -1), kf_new),
+        ftr_j=_remap_ref(torch.where(ms.ftr_valid, ms.ftr_j, -1), kf_new),
+        ftr_valid=(ms.ftr_valid & (_remap_ref(ms.ftr_i, kf_new) >= 0)
+                   & (_remap_ref(ms.ftr_j, kf_new) >= 0)),
+        n_kf=n_kf,
+        n_mp=n_mp,
+        **_mp_gathered(ms, mp_old, mp_live, _remap_ref(ms.mp_main_kf, kf_new),
+                       _remap_ref(ms.mp_obs_kf, kf_new)),
+    )
+    return out, kf_new, mp_new
 
 
 def local_graph_masks(ms: MapState, cur_kf, hops: int = 3):

@@ -85,10 +85,35 @@ def test_kernel_rejects_what_it_does_not_take(card):
     ok = torch.zeros((64, 64), device=card)
     for levels in ([ok, torch.zeros((64, 64), dtype=torch.float64, device=card)],
                    [ok, torch.zeros((64, 128), device=card)[:, ::2]],
-                   [ok, torch.zeros((64, 64))],
-                   [ok] * (K1.MAX_LEVELS + 1)):
+                   [ok, torch.zeros((64, 64))]):
         with pytest.raises(ValueError):
             K1.fast_nms_levels(levels, 20.0, 7.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_levels", [9, 10])
+def test_levels_past_the_table_launch_per_group(card, n_levels):
+    """More levels than the kernel's 8-entry table: one launch per group of
+    8, every level bitwise equal to the plain version; the extractor's
+    forward pass at that depth launches the same two."""
+    cfg, oc = default_cfg(n_levels=n_levels)
+    ext = OrbExtractor(oc, device=card)
+    world = SyntheticWorld(cfg, n_landmarks=500, seed=0)
+    img = torch.from_numpy(world.render(world.circle_trajectory(352, radius=2.5)[0])).to(card)
+    levels = [lv.contiguous() for lv in ext.pyramid(img)]
+    assert len(levels) == n_levels
+    before = K1.fast_nms.launches
+    got = K1.fast_nms_levels(levels, 20.0, 7.0)
+    torch.cuda.synchronize()
+    assert K1.fast_nms.launches == before + 2
+    for lv, maps in zip(levels, got):
+        for g, w in zip(maps, K1.fast_nms_plain(lv, 20.0, 7.0)):
+            assert g.shape == lv.shape and torch.equal(g, w)
+    before = K1.fast_nms.launches
+    feats = ext(img)
+    torch.cuda.synchronize()
+    assert K1.fast_nms.launches == before + 2
+    assert int((feats.octave[feats.valid] == n_levels - 1).sum()) > 0
 
 
 @pytest.mark.cuda
@@ -296,3 +321,92 @@ def test_localizer_step_launches_k2_once(card):
     torch.cuda.synchronize()
     assert K2.windowed_top2.launches == k2 + 1
     assert K1.fast_nms.launches == k1 + 1
+
+
+@pytest.fixture(scope="module")
+def small_map():
+    """A map the port's SlamSystem (loops off) builds on the CPU: 40 frames
+    of the bench world at 320x240, 256 features, 2 levels, 32 keyframe and
+    2048 point slots."""
+    import dataclasses
+
+    from se2lam_tpu_torch.system import SlamSystem
+
+    torch.set_num_threads(4)
+    cfg, _ = default_cfg(width=320, height=240, n_features=256, n_levels=2)
+    cfg = cfg.replace(min_frames_between_kf=2, max_frames_between_kf=8,
+                      cap=dataclasses.replace(cfg.cap, max_kfs=32, max_mps=2048, local_kfs=8,
+                                              local_ref_kfs=8, local_mps=512,
+                                              ransac_trials=64))
+    world = SyntheticWorld(cfg, n_landmarks=500, seed=0)
+    slam = SlamSystem(cfg, enable_loops=False, device="cpu")
+    gt = world.circle_trajectory(352, radius=2.5)[:40]
+    for img, odo in zip((world.render(p) for p in gt), world.odometry(gt, seed=1)):
+        slam.process(img, odo)
+    assert slam.n_keyframes() >= 4
+    return cfg, slam
+
+
+@pytest.mark.cuda
+def test_joint_global_ba_on_card_runs_the_kernel(card, small_map):
+    """``run_global_ba_joint`` on a real map: one Schur launch per LM step
+    at (max_kfs, max_mps), the result within 2e-3 of the CPU solve (the
+    card's atomics reorder f32 sums)."""
+    from se2lam_tpu_torch import loopclose
+    from se2lam_tpu_torch.mapstate import MapState
+
+    cfg, slam = small_map
+    ms_card = MapState(*(t.to(card) for t in slam.ms))
+    seen = []
+    orig = ba.schur_reduce
+
+    def spy(Hpp, bp, Hpx, Hxx_inv, bx):
+        seen.append((Hpx.shape[0], Hpx.shape[2]))
+        return orig(Hpp, bp, Hpx, Hxx_inv, bx)
+
+    before = K3.point_reduction.launches
+    ba.schur_reduce = spy
+    try:
+        got, info = loopclose.run_global_ba_joint(ms_card, cfg, iters=5)
+        torch.cuda.synchronize()
+    finally:
+        ba.schur_reduce = orig
+    assert K3.point_reduction.launches == before + 5
+    assert set(seen) == {(cfg.cap.max_kfs, cfg.cap.max_mps)}
+    want, winfo = loopclose.run_global_ba_joint(slam.ms, cfg, iters=5)
+    assert float(info["chi2"]) <= float(info["chi2_init"])
+    torch.testing.assert_close(got.kf_pose.cpu(), want.kf_pose, rtol=0, atol=2e-3)
+    torch.testing.assert_close(info["chi2"].cpu(), winfo["chi2"], rtol=1e-2, atol=1e-3)
+
+
+@pytest.mark.cuda
+def test_loop_stage_on_card(card, small_map):
+    """One ``loop_stage`` call on the card at the newest keyframe, with a
+    vocabulary trained there: the bank row of the keyframe, the decisions
+    read back once, a finite map; with the same RANSAC noise as a CPU call
+    on the same inputs, the same decisions."""
+    from se2lam_tpu_torch import loopclose, vocab as vocab_mod
+    from se2lam_tpu_torch.mapstate import MapState
+
+    cfg, slam = small_map
+    k = slam._ref_kf_host
+    g = torch.Generator().manual_seed(5)
+    noise = -torch.log(torch.empty((5, cfg.cap.ransac_trials, cfg.cap.n_features))
+                       .exponential_(generator=g))
+    outs = {}
+    for dev in (card, torch.device("cpu")):
+        ms = MapState(*(t.to(dev) for t in slam.ms))
+        valid = (ms.kf_feat_valid & ms.kf_valid[:, None]).reshape(-1)
+        vocab = vocab_mod.train_vocab(ms.kf_desc.reshape(-1, 256), valid, n_words=256,
+                                      seed_idx=torch.nonzero(valid)[:256, 0].to(dev))
+        bank, _ = vocab_mod.bow_transform(vocab, ms.kf_desc, ms.kf_feat_valid & ms.kf_valid[:, None])
+        ms2, bank2, out = loopclose.loop_stage(
+            ms, k, bank, vocab, torch.tensor([-1, -1], dtype=torch.int32, device=dev), False, cfg,
+            n_trials=cfg.cap.ransac_trials, gba_iters=cfg.global_iter,
+            joint_iters=cfg.gm_joint_ba_iters, min_between=5, gumbel=noise.to(dev))
+        assert bool(torch.isfinite(ms2.kf_pose).all()) and bool(torch.isfinite(ms2.mp_pos).all())
+        assert torch.equal(bank2[k], bank[k])
+        outs[dev.type] = out
+    for name in ("fired", "cand", "k", "renewal_gba", "cooldown"):
+        assert outs["cuda"][name] == outs["cpu"][name], name
+    assert outs["cuda"]["k"] == k

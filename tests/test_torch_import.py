@@ -26,6 +26,7 @@ import se2lam_tpu_torch.solver.ba, se2lam_tpu_torch.solver.schur, se2lam_tpu_tor
 import se2lam_tpu_torch.io.trajectory, se2lam_tpu_torch.io.mapstorage
 import se2lam_tpu_torch.vocab, se2lam_tpu_torch.solver.poseonly, se2lam_tpu_torch.loopclose
 import se2lam_tpu_torch.frontend.windowed_match, se2lam_tpu_torch.localizer
+import se2lam_tpu_torch.solver.posegraph
 new = set(sys.modules) - before
 bad = sorted(m for m in new
              if m.split(".")[0] in ("jax", "jaxlib")
@@ -78,6 +79,18 @@ def _slam_system():
     SlamSystem(default_cfg()[0], enable_loops=False)
 
 
+def _default_slam_system():
+    from se2lam_tpu_torch.entry import default_cfg
+    from se2lam_tpu_torch.system import SlamSystem
+    SlamSystem(default_cfg()[0])
+
+
+def _loop_closer():
+    from se2lam_tpu_torch.entry import default_cfg
+    from se2lam_tpu_torch.loopclose import LoopCloser
+    LoopCloser(default_cfg()[0])
+
+
 def _map_and_vocab():
     from se2lam_tpu_torch.config import Capacity
     from se2lam_tpu_torch.mapstate import empty_map
@@ -102,9 +115,11 @@ def _load_map():
 
 
 @pytest.mark.parametrize("make", [_entry, _extractor, _camera, _convert, _empty_map,
-                                  _slam_system, _localizer, _load_map],
+                                  _slam_system, _default_slam_system, _loop_closer,
+                                  _localizer, _load_map],
                          ids=["entry", "extractor", "camera", "convert", "empty_map",
-                              "slam_system", "localizer", "load_map"])
+                              "slam_system", "default_slam_system", "loop_closer",
+                              "localizer", "load_map"])
 def test_device_none_means_cuda_and_raises_without_it(make):
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: device=None runs there")

@@ -158,7 +158,7 @@ def test_localizer_trajectory_and_unported_feeds(fixture, tmp_path):
 def test_resume_matches_jax(fixture):
     fx = fixture
     js = JSlam.resume(fx["cfg"], fx["path"], enable_loops=False)
-    ts = TSlam.resume(fx["tcfg"], fx["path"], device="cpu")
+    ts = TSlam.resume(fx["tcfg"], fx["path"], enable_loops=False, device="cpu")
     ts._reloc_localizer.reloc_gumbel = jax_reloc_noise(fx["cfg"].cap.ransac_trials,
                                                        fx["cfg"].cap.n_features)
     assert ts.kf_frame_ids == js.kf_frame_ids == [-1] * fx["n_kf"]
@@ -183,9 +183,11 @@ def test_resume_matches_jax(fixture):
 
 def test_port_save_map_resumes_in_jax(fixture, tmp_path):
     """A map saved by the port's ``SlamSystem.save_map`` (vocabulary
-    trained by the port) resumes in the JAX package."""
+    trained by the port) resumes in the JAX package; with loops on (the
+    default) ``resume`` adopts the loaded vocabulary and banks every
+    loaded keyframe."""
     fx = fixture
-    ts = TSlam.resume(fx["tcfg"], fx["path"], device="cpu")
+    ts = TSlam.resume(fx["tcfg"], fx["path"], enable_loops=False, device="cpu")
     ts.save_map(str(tmp_path / "port_map"))
     jms, jvocab, info = jload(str(tmp_path / "port_map"))
     assert jvocab is not None and jvocab.words.shape == (512, 256)
@@ -194,5 +196,9 @@ def test_port_save_map_resumes_in_jax(fixture, tmp_path):
     js = JSlam.resume(fx["cfg"], str(tmp_path / "port_map"), enable_loops=False)
     poses = [js.process_features(fx["feats"][i], fx["odo"][i]) for i in range(START, START + 4)]
     assert any(np.linalg.norm(p) > 1e-6 for p in poses), "no relocalization"
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        TSlam.resume(fx["tcfg"], fx["path"], enable_loops=True, device="cpu")
+    tl = TSlam.resume(fx["tcfg"], fx["path"], device="cpu")._loop_closer
+    _, tvocab, _ = tload(fx["path"], device="cpu")
+    assert torch.equal(tl.vocab.words, tvocab.words) and torch.equal(tl.vocab.idf, tvocab.idf)
+    valid = np.arange(tl.bank.shape[0]) < fx["n_kf"]
+    bank = tl.bank.numpy()
+    assert np.any(bank[valid] != 0, axis=1).all() and not np.any(bank[~valid] != 0)

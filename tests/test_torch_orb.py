@@ -184,3 +184,30 @@ def test_configs_agree_field_by_field():
     assert dataclasses.asdict(tcfg) == dataclasses.asdict(jcfg)
     assert toc._asdict() == {k: v for k, v in joc._asdict().items()
                              if k in toc._fields}
+
+
+@pytest.mark.parametrize("n_levels", [9, 10])
+def test_extractor_matches_jax_past_eight_levels(n_levels):
+    """More pyramid levels than the FAST+NMS kernel's 8-entry level table
+    (the card launches it once per group of 8): on the CPU the extractor
+    still equals JAX's, with the exactness of ``test_extractor_matches_jax``.
+    320x240: at 160x120 the top levels are too small for the JAX
+    extractor's per-cell top-k (k=6 over a 1-pixel cell), which raises."""
+    kw = dict(width=320, height=240, n_features=1000, n_levels=n_levels)
+    jcfg, joc = _default_cfg(**kw)
+    _, toc = default_cfg(**kw)
+    assert toc.scale_factor == 1.2 and all(q > 0 for q in toc.level_quotas)
+    world = JaxWorld(jcfg, n_landmarks=500, seed=0)
+    img = world.render(world.circle_trajectory(352, radius=2.5)[0])
+    fj = jax.tree.map(np.asarray, jax.jit(jorb.make_extractor(joc))(jnp.asarray(img)))
+    ft = torb.OrbExtractor(toc, device="cpu")(torch.from_numpy(img))
+    ft = jorb.OrbFeatures(*[t.numpy() for t in ft])
+    v = fj.valid
+    assert v.sum() > 0 and (fj.octave[v] == n_levels - 1).any()
+    np.testing.assert_array_equal(ft.valid, fj.valid)
+    np.testing.assert_array_equal(ft.octave, fj.octave)
+    np.testing.assert_array_equal(ft.desc_bits[v], fj.desc_bits[v])
+    np.testing.assert_array_equal(ft.desc_pm1, fj.desc_pm1)
+    np.testing.assert_allclose(ft.xy[v], fj.xy[v], rtol=0, atol=1e-4)
+    np.testing.assert_allclose(ft.angle[v], fj.angle[v], rtol=0, atol=1e-5)
+    np.testing.assert_allclose(ft.response[v], fj.response[v], rtol=0, atol=1e-2)

@@ -3,6 +3,11 @@ against the JAX package's on the 40-frame lap of ``tests/test_system.py``
 (320x240, 256 features, 2 levels), every tracked frame drawing its RANSAC
 samples from the JAX package's per-frame Gumbel noise.
 
+The last tests run ``SlamSystem(cfg)`` with its defaults (loops on) on
+the revisit lap of ``tests/test_async_mapping.py``, and a 3-keyframe bank
+through capacity relief (the JAX parity of both is in
+``tests/test_torch_loopclose.py`` and ``tests/test_torch_capacity.py``).
+
 Tolerances: the same keyframe frame ids (no slack was needed on this
 lap); each package's ATE < 0.2 m (the JAX package's own bound,
 ``tests/test_system.py``); the two ATEs, live and re-anchored, within
@@ -98,9 +103,25 @@ def test_trajectory_files(both, tmp_path):
     assert ts.current_pose().shape == (3,)
 
 
-def test_loops_raise_not_implemented():
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        SlamSystem(config_from_fields(dataclasses.asdict(lap_cfg())), device="cpu")
+def test_default_system_closes_the_revisit_lap():
+    """``SlamSystem(cfg)`` with its defaults (loops on, its own RANSAC
+    draws) on the 126-frame revisit lap of ``tests/test_async_mapping.py``:
+    a loop closes and the corrected trajectory beats raw odometry."""
+    from test_dist_system import _world_cfg
+
+    cfg = _world_cfg()
+    world = SyntheticWorld(cfg, n_landmarks=600, room=10.0, seed=4)
+    lap = world.circle_trajectory(90)
+    gt = np.concatenate([lap, lap])[:126]
+    odo = world.odometry(gt, noise=(0.012, 0.006, 0.006), seed=3)
+    s = SlamSystem(config_from_fields(dataclasses.asdict(cfg)), device="cpu")
+    for g, o in zip(gt, odo):
+        s.process(world.render(g), o)
+    lc = s._loop_closer
+    assert lc.n_loops_closed >= 1 and lc.last_loop is not None
+    corr = s.corrected_trajectory()
+    assert np.isfinite(corr).all()
+    assert ate_se2(corr[:, 1:3], gt[:, :2])[0] < ate_se2(odo[:, :2], gt[:, :2])[0]
 
 
 @pytest.mark.parametrize("feed", ["process_async", "process_chunk", "process_chunk_async"])
@@ -111,15 +132,17 @@ def test_feeds_of_later_slices_raise(feed):
         getattr(s, feed)()
 
 
-def test_capacity_pressure_raises_not_implemented():
-    """A full keyframe bank raises instead of skipping the insertion: the
-    JAX package's capacity relief is not ported yet."""
+def test_capacity_pressure_compacts():
+    """The 3-keyframe bank that used to raise: capacity relief prunes and
+    compacts, and mapping goes on past the bank's size."""
     cfg = lap_cfg()
     cfg = cfg.replace(cap=dataclasses.replace(cfg.cap, max_kfs=3))
     world = SyntheticWorld(cfg, n_landmarks=500, room=10.0, seed=4)
     s = SlamSystem(config_from_fields(dataclasses.asdict(cfg)), enable_loops=False,
                    device="cpu", generator=torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError, match="capacity relief"):
-        for img, odo in world.sequence(20, noise=(0.004, 0.002, 0.002)):
-            s.process(img, odo)
-    assert s.n_keyframes() == 3
+    for img, odo in world.sequence(20, noise=(0.004, 0.002, 0.002)):
+        s.process(img, odo)
+    assert s.capacity_compactions >= 1
+    assert s.n_keyframes() <= 3 and len(s.kf_frame_ids) == s.n_keyframes()
+    assert max(s.kf_frame_ids) > 10
+    assert np.isfinite(s.corrected_trajectory()).all()
