@@ -73,7 +73,43 @@ a nonzero exit if it fails:
 11. capacity relief: the same scene and configuration, loops on, with the
    banks cut to 16 keyframes and 2048 points: both reliefs run, the map's
    tables stay consistent after every relief, the BoW bank's rows are
-   nonzero exactly on valid keyframes, the corrected trajectory is finite.
+   nonzero exactly on valid keyframes, the corrected trajectory is finite;
+12. batch extraction: 32 bench frames in one ``OrbExtractor.forward_batch``
+   call, 20 FAST+NMS launches (all levels of all frames), frame by frame
+   bitwise the features of ``forward``, its peak device memory and its
+   time beside 32 ``forward`` calls;
+13. chunked and pipelined SLAM: the mapping phase's 60 frames (loops off,
+   seed 0 draws) through ``process_chunk`` (chunks of 8), ``process_async``
+   (depth 2) and ``process_chunk_async`` (chunks of 8), each beside
+   ``process`` in deterministic mode (see ``deterministic``; phases 13
+   and 14 run in a child process, see ``phase_feeds``): the same keyframe
+   frames, raw and corrected poses bitwise, every kernel's launches; then each feed timed outside that mode: frames/s and control
+   reads a frame; then the loop phase's first draw through ``process`` and
+   ``process_chunk`` in deterministic mode: the same keyframes and
+   closures;
+14. chunked and pipelined localization: frames 10-49 of the localization
+   phase through ``Localizer.process_chunk`` (chunks of 8) and
+   ``process_async`` beside ``process``, in deterministic mode: the same
+   tracked frames, poses bitwise, frames/s, K2 launches and the steps run
+   frozen after a loss;
+15. fleet tracking: B = 1, 2, 4, 8 robots, robot b on
+   ``SyntheticWorld(n_landmarks=500, seed=b)`` at the bench widths for 16
+   frames, one ``make_fleet_tracker`` step a frame for the whole fleet:
+   each robot's decisions (need_kf, inlier, tracked and parallax counts)
+   and feature matches bitwise those of that robot alone through the same
+   step at B = 1, its poses (odometry's) within 1e-5, ⌈5B/8⌉ FAST+NMS
+   launches a step, ms per robot-frame and peak memory;
+16. fleet localization: B = 4 robots (starts 10, 12, 14, 16, odometry
+   noise seeds 20-23) x 4 chunks of 8 frames on the saved map, one
+   ``make_fleet_localizer`` step a chunk: per robot the tracked flags and
+   poses (within 1e-3) of a single-robot ``Localizer.process_chunk`` run,
+   exactly one K2 launch a chunk step for the whole fleet, robot-frames/s;
+17. batched K2 on the fleet's first real step (B = 4, N1 = 8192, N2 =
+   1000): one batched launch bitwise equal to the 4 single launches and
+   to the batched plain version, all-ties inputs at B = 3, times in a
+   graph and eagerly beside the 4 single launches, and its bound.
+
+Every phase prints its seconds, and the run its total.
 
 The Schur kernel is held, on every system, to its plain version evaluated
 in f64 on the same f32 inputs (see ``schur_check``).
@@ -83,11 +119,14 @@ It prints the kernels' JSON line before the last line, and last
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
+import os
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -104,9 +143,10 @@ from se2lam_tpu_torch.io import load_map
 from se2lam_tpu_torch.io.synthetic import SyntheticWorld, map_gauge
 from se2lam_tpu_torch.io.trajectory import ate_se2
 from se2lam_tpu_torch.kernels import build_all, load_library, ptxas_summary
-from se2lam_tpu_torch.kernels.samples import k2_inputs
+from se2lam_tpu_torch.kernels.samples import k2_inputs, k2_robot_inputs
 from se2lam_tpu_torch.localizer import Localizer
 from se2lam_tpu_torch.mapstate import MapState
+from se2lam_tpu_torch.parallel import make_fleet_localizer, make_fleet_tracker
 from se2lam_tpu_torch.solver import ba
 from se2lam_tpu_torch.solver import schur as K3
 from se2lam_tpu_torch.system import SlamSystem
@@ -184,6 +224,20 @@ JOINT_SCHUR_REL_MAX = 1e-4
 # capacity relief on the same scene: bank sizes at which both reliefs run
 # (examples/loop_draws.py, CPU)
 RELIEF_KFS, RELIEF_MPS, RELIEF_FRAMES = 16, 2048, 72
+# slice 5: the chunked and pipelined feeds, and fleets
+BATCH_FRAMES = 32
+FEED_K, FEED_DEPTH = 8, 2
+# the feeds against process() run the same eager ops, and in deterministic
+# mode give process()'s poses bit for bit (keyframe frames, raw and
+# corrected SLAM poses, localization poses all equal); fleet localization
+# against one robot's process_chunk runs batched ops, whose sums may take
+# another order: within the JAX package's own tolerance between its feeds
+# (tests/test_localizer.py)
+FEED_LOC_POSE_TOL = 1e-3
+FLEET_SIZES, FLEET_FRAMES = (1, 2, 4, 8), 16
+FLEET_POSE_TOL = 1e-5          # the JAX package's tests/test_fleet.py
+FLEET_LOC_STARTS, FLEET_LOC_K, FLEET_LOC_CHUNKS = (10, 12, 14, 16), 8, 4
+FLEET_LOC_NOISE_SEED = 20      # robot r's odometry noise seed is 20 + r
 
 
 def log(msg):
@@ -325,9 +379,9 @@ def phase_kernel(extract, world, gt0):
 
 def phase_extractor(extract, oc, img):
     """The extractor on the card against the same extractor on the CPU,
-    whose plain path the CPU tests hold against the JAX package: the cuBLAS
-    pyramid moves level pixels by a few ulps, which may move a keypoint's
-    subpixel offset slightly and, rarely, a descriptor bit."""
+    whose plain path the CPU tests hold against the JAX package: the
+    moment and pattern-bank products sum in another order on the card,
+    which may move an angle and, rarely, a descriptor bit."""
     fg = extract(torch.from_numpy(img).cuda())
     fc = OrbExtractor(oc, device="cpu")(torch.from_numpy(img))
     v = fc.valid
@@ -1005,6 +1059,13 @@ def loop_frames(world):
     return gt, world.odometry(gt, noise=LOOP_NOISE, seed=3)
 
 
+def loop_scene(world):
+    """The loop phase's configuration, ground truth, odometry and frames."""
+    gt, odo = loop_frames(world)
+    imgs = [torch.from_numpy(world.render(p)).to("cuda") for p in gt]
+    return default_cfg()[0].replace(**LOOP_CADENCE), gt, odo, imgs
+
+
 def run_loop(cfg, imgs, odo, gt, seed):
     """One pass of SlamSystem(cfg) with its defaults over the loop scene;
     tracking's RANSAC draws seeded ``seed``, the loop closer's 42 + seed."""
@@ -1046,6 +1107,7 @@ def run_loop(cfg, imgs, odo, gt, seed):
         pose_only_ms_per_call=float(np.median(pose_only_ms)), pose_only_calls=len(pose_only_ms),
         pose_graph_ms=pg_ms, joint_gba_ms=joint_ms,
         frames_per_s=len(imgs) / loop_s, loop_s=loop_s,
+        host_reads_per_frame=slam.host_reads / len(imgs),
     )
 
 
@@ -1062,9 +1124,7 @@ def phase_loop(world):
     kernel's shapes), more RANSAC draws, then the Schur kernel on the
     damped system of the first joint GBA of the counted run."""
     dev = torch.device("cuda")
-    cfg = default_cfg()[0].replace(**LOOP_CADENCE)
-    gt, odo = loop_frames(world)
-    imgs = [torch.from_numpy(world.render(p)).to(dev) for p in gt]
+    cfg, gt, odo, imgs = loop_scene(world)
 
     # the shape of every Schur reduction the solver asks for (the kernel's
     # own counter counts its launches)
@@ -1191,24 +1251,528 @@ def phase_relief(world):
     return run
 
 
+# -- slice 5: batch extraction, the chunked and pipelined feeds, fleets --
+
+
+def batch_vs_forward(fb, f1, what):
+    """A batched extraction's frame against ``forward`` on the same frame:
+    every field bitwise equal (the batch builds each frame's pyramid with
+    ``forward``'s own products)."""
+    for name in f1._fields:
+        if not torch.equal(getattr(fb, name), getattr(f1, name)):
+            raise SystemExit(f"chip_smoke: batched extraction's {name} differs from forward "
+                             f"on {what}")
+
+
+def phase_batch_extract(extract, oc, world):
+    """BATCH_FRAMES bench frames in one forward_batch call."""
+    gt = world.circle_trajectory(352, radius=2.5)[:BATCH_FRAMES]
+    imgs = torch.from_numpy(np.stack([world.render(p) for p in gt]).astype(np.uint8)).cuda()
+    extract.forward_batch(imgs[:2])                  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    K1.fast_nms.launches = 0
+    fb = extract.forward_batch(imgs)
+    torch.cuda.synchronize()
+    launches = K1.fast_nms.launches
+    peak = torch.cuda.max_memory_allocated() - base
+    want = -(-oc.n_levels * BATCH_FRAMES // K1.MAX_LEVELS)
+    if launches != want:
+        raise SystemExit(f"chip_smoke: a {BATCH_FRAMES}-frame batch launched K1 {launches} "
+                         f"times, want {want}")
+    for i in range(BATCH_FRAMES):
+        batch_vs_forward(tracking.chunk_frame(fb, i), extract(imgs[i]), f"frame {i}")
+    batch_ms = events_ms(lambda: extract.forward_batch(imgs), reps=5, warmup=1)
+    frames_ms = events_ms(lambda: [extract(im) for im in imgs], reps=5, warmup=1)
+    out = dict(frames=BATCH_FRAMES, k1_launches=launches, peak_bytes_above_inputs=peak,
+               peak_mib=peak / 2**20, equal_to_forward=True,
+               batch_ms_per_frame=batch_ms / BATCH_FRAMES,
+               forward_ms_per_frame=frames_ms / BATCH_FRAMES)
+    log("batch extraction: " + json.dumps(out))
+    return out
+
+
+def chunk_k1_launches(n, k, n_levels, boot=1):
+    """K1 launches of a chunked SLAM feed over n frames in chunks of k: the
+    bootstrap frame alone, then every chunk's remaining frames in one batch."""
+    total = boot
+    for i in range(0, n, k):
+        live = min(k, n - i) - (boot if i == 0 else 0)
+        total += -(-n_levels * live // K1.MAX_LEVELS)
+    return total
+
+
+def feed_slam(cfg, imgs, odo, feed, seed=0, enable_loops=False):
+    """One SLAM run through ``feed``; tracking's draws seeded ``seed``, the
+    loop closer's 42 + seed."""
+    slam = SlamSystem(cfg, enable_loops=enable_loops,
+                      generator=torch.Generator(device="cuda").manual_seed(seed))
+    if enable_loops:
+        slam._loop_closer.generator = torch.Generator(device="cuda").manual_seed(42 + seed)
+    slam.pipeline_depth = FEED_DEPTH
+    n = len(imgs)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    if feed == "process":
+        for img, o in zip(imgs, odo):
+            slam.process(img, o)
+    elif feed == "process_async":
+        for img, o in zip(imgs, odo):
+            slam.process_async(img, o)
+        slam.flush_async()
+    elif feed == "process_chunk":
+        for i in range(0, n, FEED_K):
+            slam.process_chunk(imgs[i:i + FEED_K], odo[i:i + FEED_K])
+    else:
+        for i in range(0, n, FEED_K):
+            slam.process_chunk_async(imgs[i:i + FEED_K], odo[i:i + FEED_K])
+        slam.flush_chunk_async()
+    torch.cuda.synchronize()
+    loop_s = time.perf_counter() - t0
+    est = np.asarray([p for _, p in slam.trajectory])
+    if len(est) != n or not np.isfinite(est).all():
+        raise SystemExit(f"chip_smoke: the {feed} feed returned {len(est)} poses or a "
+                         "pose that is not finite")
+    return slam, dict(feed=feed, kf_frames=slam.kf_frame_ids, frames_per_s=n / loop_s,
+                      loop_s=loop_s, host_reads_per_frame=slam.host_reads / n)
+
+
+@contextlib.contextmanager
+def deterministic():
+    """``torch.use_deterministic_algorithms`` over a comparison of two feeds.
+    Local BA and the vocabulary accumulate floats with ``index_add_`` and
+    ``scatter_add_``, whose CUDA versions add in a different order from run
+    to run, so two runs of the same feed differ in the last ulps and, over
+    many keyframes and a loop closure, in their decisions. In this mode
+    those ops take their deterministic versions; an op without one warns
+    (logged) instead of raising."""
+    prev = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            yield
+    finally:
+        torch.use_deterministic_algorithms(prev)
+    msgs = sorted({str(w.message)[:160] for w in caught})
+    if msgs:
+        log("deterministic mode warned: " + json.dumps(msgs))
+
+
+FEEDS = ("process_chunk", "process_async", "process_chunk_async")
+
+
+def phase_feeds_slam(cfg, world, loop):
+    """The chunked and pipelined SLAM feeds beside process() on the mapping
+    phase's frames, compared in deterministic mode and timed outside it;
+    then the loop phase's first draw (``loop``: ``loop_scene``) through
+    process() and process_chunk, in deterministic mode."""
+    dev = torch.device("cuda")
+    gt = world.circle_trajectory(352, radius=2.5)[:MAP_FRAMES]
+    odo = world.odometry(gt, noise=ODO_NOISE, seed=1)
+    imgs = [torch.from_numpy(world.render(p)).to(dev) for p in gt]
+    for feed in ("process_chunk", "process_chunk_async"):   # warm-up
+        feed_slam(cfg, imgs[:12], odo[:12], feed, seed=99)
+    with deterministic():
+        ref, ref_run = feed_slam(cfg, imgs, odo, "process")
+        ref_est = np.asarray([p for _, p in ref.trajectory])
+        ref_cor = ref.corrected_trajectory()
+        runs, launches = [ref_run], {}
+        for feed in FEEDS:
+            K1.fast_nms.launches = K2.windowed_top2.launches = K3.point_reduction.launches = 0
+            with Counted(localmap, "match_by_projection_streamed") as im:
+                slam, run = feed_slam(cfg, imgs, odo, feed)
+            k1, k2, k3 = (K1.fast_nms.launches, K2.windowed_top2.launches,
+                          K3.point_reduction.launches)
+            est = np.asarray([p for _, p in slam.trajectory])
+            run.update(
+                pose_max_diff=float(np.abs(est - ref_est).max()),
+                corrected_max_diff=float(np.abs(slam.corrected_trajectory() - ref_cor).max()),
+                k1_launches=k1, k2_launches=k2, k3_launches=k3, n_local_ba=slam.n_local_ba)
+            runs.append(run)
+            launches[feed] = dict(k1=k1, k2=k2, k3=k3)
+            want_k1 = (MAP_FRAMES if feed == "process_async"
+                       else chunk_k1_launches(MAP_FRAMES, FEED_K, cfg.max_level))
+            if (run["kf_frames"] != ref_run["kf_frames"]
+                    or run["pose_max_diff"] != 0.0 or run["corrected_max_diff"] != 0.0
+                    or k1 != want_k1
+                    or k2 != im.calls or k2 < 1 or k3 != cfg.local_iter * slam.n_local_ba
+                    or slam.n_local_ba < 1):
+                raise SystemExit(f"chip_smoke: the {feed} feed against process: " + json.dumps(
+                    dict(run, want_kf_frames=ref_run["kf_frames"], want_k1=want_k1,
+                         insert_projection_matches=im.calls)))
+    log("feeds (SLAM loop, loops off, deterministic mode): " + json.dumps(runs))
+    timing = [feed_slam(cfg, imgs, odo, feed)[1] for feed in ("process",) + FEEDS]
+    log("feeds (SLAM loop, loops off, timed): " + json.dumps(
+        [{k: r[k] for k in ("feed", "kf_frames", "frames_per_s", "host_reads_per_frame")}
+         for r in timing]))
+
+    # the loop phase's first draw (tracking seed 0, loop closer 42)
+    cfg_l, _, odo_l, imgs_l = loop
+    loop_runs = []
+    with deterministic():
+        for feed in ("process", "process_chunk"):
+            slam, run = feed_slam(cfg_l, imgs_l, odo_l, feed, seed=0, enable_loops=True)
+            lc = slam._loop_closer
+            run.update(n_loops=lc.n_loops_closed, last_loop=lc.last_loop)
+            loop_runs.append(run)
+    log("feeds (loop phase, draw 0, deterministic mode): " + json.dumps(loop_runs))
+    want, got = loop_runs
+    if (got["kf_frames"] != want["kf_frames"] or got["n_loops"] != want["n_loops"]
+            or got["last_loop"] != want["last_loop"] or want["n_loops"] < 1):
+        raise SystemExit("chip_smoke: the chunked loop draw differs from process()")
+    return dict(runs=runs, timing=timing, launches=launches, loop=loop_runs)
+
+
+def feed_localize(cfg, ms, vocab, imgs, odo, feed, seed=0):
+    loc = Localizer(cfg, ms, vocab, generator=torch.Generator(device="cuda").manual_seed(seed))
+    loc.pipeline_depth = FEED_DEPTH
+    frames = list(LOC_FRAMES)
+    K2.windowed_top2.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    if feed == "process":
+        for i in frames:
+            loc.process(imgs[i], odo[i])
+    elif feed == "process_async":
+        for i in frames:
+            loc.process_async(imgs[i], odo[i])
+        loc.flush_async()
+    else:
+        for c in range(0, len(frames), FEED_K):
+            f = frames[c:c + FEED_K]
+            loc.process_chunk([imgs[i] for i in f], [odo[i] for i in f])
+    torch.cuda.synchronize()
+    loop_s = time.perf_counter() - t0
+    return loc, dict(feed=feed, frames_per_s=len(frames) / loop_s, loop_s=loop_s,
+                     k2_launches=K2.windowed_top2.launches,
+                     n_tracked=sum(t for _, _, t in loc.trajectory),
+                     host_reads_per_frame=loc.host_reads / len(frames),
+                     frozen_steps=loc.frozen_steps)
+
+
+def phase_feeds_localization(cfg, world, ms, vocab):
+    dev = torch.device("cuda")
+    gt = world.circle_trajectory(352, radius=2.5)[:MAP_FRAMES]
+    odo = world.odometry(gt, noise=LOC_NOISE, seed=9)
+    imgs = [torch.from_numpy(world.render(p)).to(dev) for p in gt]
+    feed_localize(cfg, ms, vocab, imgs, odo, "process_chunk", seed=99)     # warm-up
+    with deterministic():
+        ref, ref_run = feed_localize(cfg, ms, vocab, imgs, odo, "process")
+        feeds = [feed_localize(cfg, ms, vocab, imgs, odo, feed)
+                 for feed in ("process_chunk", "process_async")]
+    runs = [ref_run]
+    for loc, run in feeds:
+        feed = run["feed"]
+        flags = [t for _, _, t in loc.trajectory] == [t for _, _, t in ref.trajectory]
+        holes = [(p is None) for _, p, _ in loc.trajectory] == [
+            (p is None) for _, p, _ in ref.trajectory]
+        diffs = [float(np.abs(p - q).max()) for (_, p, _), (_, q, _)
+                 in zip(loc.trajectory, ref.trajectory) if p is not None and q is not None]
+        run.update(same_tracked=flags and holes, pose_max_diff=max(diffs, default=0.0))
+        runs.append(run)
+        if not (flags and holes) or run["pose_max_diff"] != 0.0 or (
+                run["k2_launches"] < run["n_tracked"]):
+            raise SystemExit(f"chip_smoke: the Localizer's {feed} feed against process: "
+                             + json.dumps(run))
+    log("feeds (localization, deterministic mode): " + json.dumps(runs))
+    return runs
+
+
+FEEDS_CHILD_TIMEOUT_S = 600
+
+
+def phase_feeds(map_dir):
+    """Phases 13 and 14 in a child process, which alone sets cuBLAS's
+    deterministic workspace (``CUBLAS_WORKSPACE_CONFIG``, read once, when a
+    process first uses cuBLAS; ``torch.use_deterministic_algorithms`` needs
+    it). Every other phase runs with cuBLAS's default workspace. The child
+    builds nothing: it loads the kernels built here and the saved map.
+    Returns (SLAM feeds, localization feeds)."""
+    out = Path(map_dir).parent / "feeds.json"
+    out.unlink(missing_ok=True)
+    sys.stdout.flush()
+    r = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--feeds", str(out)],
+                       env=dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8"),
+                       timeout=FEEDS_CHILD_TIMEOUT_S)
+    if r.returncode != 0:
+        raise SystemExit(f"chip_smoke: the feeds' process exited with code {r.returncode}")
+    got = json.loads(out.read_text())
+    return got["slam"], got["localization"]
+
+
+def feeds_main(out):
+    """The child of ``phase_feeds``: phases 13 and 14, their results as JSON
+    in ``out``."""
+    if os.environ.get("CUBLAS_WORKSPACE_CONFIG") != ":4096:8":
+        raise SystemExit("chip_smoke --feeds: run with CUBLAS_WORKSPACE_CONFIG=:4096:8")
+    cfg, _ = default_cfg()
+    world = SyntheticWorld(cfg, n_landmarks=500, seed=0)
+    loop = loop_scene(SyntheticWorld(cfg, n_landmarks=1200, room=10.0, seed=4))
+    feeds = timed("feeds slam", phase_feeds_slam, cfg, world, loop)
+    ms, vocab, _ = load_map(str(MAP_DIR))
+    loc_feeds = timed("feeds localization", phase_feeds_localization, cfg, world, ms, vocab)
+    Path(out).write_text(json.dumps(dict(slam=feeds, localization=loc_feeds)))
+    return 0
+
+
+def phase_fleet_tracking(cfg, oc):
+    """B robots, robot b on its own world, one fleet step a frame."""
+    dev = torch.device("cuda")
+    Bmax = max(FLEET_SIZES)
+    imgs, odos = [], []
+    for b in range(Bmax):
+        w = SyntheticWorld(cfg, n_landmarks=500, seed=b)
+        gt = w.circle_trajectory(352, radius=2.5)[:FLEET_FRAMES]
+        imgs.append(np.stack([w.render(p) for p in gt]))
+        odos.append(gt)
+    imgs = torch.from_numpy(np.stack(imgs)).to(dev)                 # (B, T, H, W)
+    odos = torch.from_numpy(np.stack(odos).astype(np.float32)).to(dev)
+    noise = torch.stack([torch.stack([
+        tracking.draw_track_noise(g, cfg) for _ in range(1, FLEET_FRAMES)])
+        for g in (torch.Generator(device=dev).manual_seed(b) for b in range(Bmax))])
+    init_fn, step_fn, extract_fn = make_fleet_tracker(cfg, oc)
+
+    def run(robots):
+        rb = list(robots)
+        ts = init_fn(extract_fn(imgs[rb, 0]), odos[rb, 0], odos[rb, 0])
+        out = []
+        torch.cuda.synchronize()
+        K1.fast_nms.launches = 0
+        t0 = time.perf_counter()
+        for t in range(1, FLEET_FRAMES):
+            ts, res = step_fn(ts, imgs[rb, t], odos[rb, t], noise[rb, t - 1])
+            # the caller's one read a step: every robot's decisions, pose
+            # and feature matches (integers, exact in f32)
+            out.append(torch.cat([
+                torch.stack([res.need_kf, res.n_matched, res.n_tracked_old, ts.n_good_prl],
+                            1).to(torch.float32),
+                res.pose, ts.match_idx.to(torch.float32)], 1).cpu().numpy())
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        return np.stack(out, 1), dt, K1.fast_nms.launches   # (B, T-1, 7 + N)
+
+    run(range(2))                                  # warm-up
+    alone = [run([b])[0][0] for b in range(Bmax)]
+    out = {}
+    for B in FLEET_SIZES:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        got, dt, k1 = run(range(B))
+        peak = torch.cuda.max_memory_allocated() - base
+        steps = FLEET_FRAMES - 1
+        want_k1 = steps * -(-cfg.max_level * B // K1.MAX_LEVELS)
+        diff = max(float(np.abs(got[b][:, 4:7] - alone[b][:, 4:7]).max()) for b in range(B))
+        # the pose comes from odometry alone; the decisions and matches are
+        # what the batched extraction, match and RANSAC compute
+        dec_diff = [(b, s) for b in range(B) for s in range(steps)
+                    if not np.array_equal(got[b, s, :4], alone[b][s, :4])]
+        midx_diff = [(b, s) for b in range(B) for s in range(steps)
+                     if not np.array_equal(got[b, s, 7:], alone[b][s, 7:])]
+        out[B] = dict(ms_per_robot_frame=1e3 * dt / (B * steps), steps=steps, k1_launches=k1,
+                      k1_per_step=k1 / steps, pose_max_diff_vs_alone=diff,
+                      decision_steps_differing_alone=dec_diff,
+                      match_steps_differing_alone=midx_diff, peak_mib=peak / 2**20,
+                      min_matched=float(got[:, :, 1].min()),
+                      need_kf_steps=int(got[:, :, 0].sum()))
+        if (k1 != want_k1 or diff > FLEET_POSE_TOL or dec_diff or midx_diff
+                or not np.isfinite(got).all() or got[:, :, 1].max() < 50):
+            raise SystemExit(f"chip_smoke: fleet tracking at B = {B}: " + json.dumps(
+                dict(out[B], want_k1=want_k1)))
+    log("fleet tracking: " + json.dumps(out))
+    return out
+
+
+def se2_minus_np(p, ref):
+    """The SE(2) pose ``p`` in ``ref``'s frame, in float64 on the host."""
+    dx, dy = p[0] - ref[0], p[1] - ref[1]
+    c, s = math.cos(ref[2]), math.sin(ref[2])
+    return np.array([c * dx + s * dy, -s * dx + c * dy,
+                     math.remainder(p[2] - ref[2], 2 * math.pi)])
+
+
+def phase_fleet_localization(cfg, world, ms, vocab):
+    """B robots x chunks of k frames on the saved map, one fleet step a
+    chunk, beside each robot's single Localizer.process_chunk run. Returns
+    the run and the arguments of the fleet's first batched K2 launch."""
+    dev = torch.device("cuda")
+    B, k, n_chunks = len(FLEET_LOC_STARTS), FLEET_LOC_K, FLEET_LOC_CHUNKS
+    gt = world.circle_trajectory(352, radius=2.5)[:MAP_FRAMES]
+    first, last = min(FLEET_LOC_STARTS), max(FLEET_LOC_STARTS) + k * n_chunks
+    frame_img = {i: torch.from_numpy(world.render(gt[i])).to(dev) for i in range(first, last)}
+    odos = [world.odometry(gt, noise=LOC_NOISE, seed=FLEET_LOC_NOISE_SEED + r).astype(np.float32)
+            for r in range(B)]
+    pose0 = np.stack([se2_minus_np(gt[s], gt[0]) for s in FLEET_LOC_STARTS]).astype(np.float32)
+    last0 = np.stack([odos[r][s] for r, s in enumerate(FLEET_LOC_STARTS)])
+
+    def chunk(c):
+        fr = [[s + c * k + j for j in range(k)] for s in FLEET_LOC_STARTS]
+        im = torch.stack([torch.stack([frame_img[i] for i in row]) for row in fr])
+        od = np.stack([odos[r][row] for r, row in enumerate(fr)])
+        return im, od
+
+    extract_fn, step_fn = make_fleet_localizer(cfg, ms)
+
+    def run_fleet():
+        pose_b, last_b = torch.from_numpy(pose0).to(dev), torch.from_numpy(last0).to(dev)
+        poses, tracked, k2 = [], [], []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for c in range(n_chunks):
+            im, od = chunk(c)
+            od = torch.from_numpy(od).to(dev)
+            feats = extract_fn(im)
+            K2.windowed_top2.launches = 0
+            p, t = step_fn(pose_b, last_b, feats, od)
+            k2.append(K2.windowed_top2.launches)
+            # the host's one read a chunk; a lost robot's carry stays frozen
+            h = torch.cat([t.to(torch.float32)[..., None], p], -1).cpu().numpy()
+            poses.append(h[..., 1:])
+            tracked.append(h[..., 0] > 0)
+            pose_b = p[:, -1]
+            last_b = torch.where(t.all(1)[:, None], od[:, -1], last_b)
+        torch.cuda.synchronize()
+        return (np.concatenate(poses, 1), np.concatenate(tracked, 1), k2,
+                time.perf_counter() - t0)
+
+    run_fleet()                                                   # warm-up
+    with Counted(K2, "_top2_batched_op") as spy:
+        poses, tracked, k2, dt = run_fleet()
+    if spy.calls != k * n_chunks or spy.first is None:
+        raise SystemExit(f"chip_smoke: fleet localization made {spy.calls} batched K2 calls")
+    real = tuple(spy.first[0])
+
+    singles, single_s = [], 0.0
+    for r in range(B):
+        loc = Localizer(cfg, ms, vocab)
+        loc.set_pose(pose0[r], last0[r])
+        out = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for c in range(n_chunks):
+            im, od = chunk(c)
+            out.extend(loc.process_chunk(list(im[r]), list(od[r])))
+        torch.cuda.synchronize()
+        single_s += time.perf_counter() - t0
+        singles.append(out)
+    diffs, flags_ok = [], True
+    for r in range(B):
+        fl = list(map(bool, tracked[r]))
+        upto = fl.index(False) if False in fl else len(fl)
+        ref_fl = [p is not None for p in singles[r]]
+        flags_ok &= ref_fl[:upto] == fl[:upto]
+        diffs += [float(np.abs(poses[r, j] - singles[r][j]).max()) for j in range(upto)
+                  if singles[r][j] is not None]
+    n = B * k * n_chunks
+    run = dict(B=B, k=k, chunks=n_chunks, robot_frames=n, tracked=int(tracked.sum()),
+               robot_frames_per_s=n / dt, single_robot_frames_per_s=n / single_s,
+               k2_launches_per_chunk=k2, pose_max_diff_vs_single=max(diffs, default=0.0),
+               flags_equal_single=flags_ok, n1_n2=(real[0].shape[0], real[6].shape[1]))
+    log("fleet localization: " + json.dumps(run))
+    if (not flags_ok or run["pose_max_diff_vs_single"] > FEED_LOC_POSE_TOL
+            or any(x != k for x in k2) or run["tracked"] < 0.95 * n):
+        raise SystemExit("chip_smoke: fleet localization failed its checks")
+    return run, real
+
+
+def k2_batched_check(args, what):
+    """One batched launch against the single launches robot by robot and
+    against the batched plain version: all four outputs equal."""
+    n0 = K2.windowed_top2.launches
+    got = K2.windowed_top2_batched(*args)
+    if K2.windowed_top2.launches != n0 + 1:
+        raise SystemExit("chip_smoke: the batched K2 call was not one launch")
+    plain = K2.windowed_top2_batched_plain(*args)
+    B = args[1].shape[0]
+    for b in range(B):
+        one = [a if i in (0, 2, 3, 4) else a[b] for i, a in enumerate(args)]
+        for name, g, p, w in zip(("best", "second", "argbest", "argsecond"), got, plain,
+                                 K2.windowed_top2(*one)):
+            if not (torch.equal(g[b], w) and torch.equal(p[b], w)):
+                raise SystemExit(f"chip_smoke: batched K2 {name} of robot {b} differs on {what}")
+    torch.cuda.synchronize()
+
+
+def k2_batched_bound(args):
+    """(bound ms, bound_by) of one batched launch: B times the single
+    bound's work (each robot's gated pairs' dot products over the int8
+    peak, the gate on all its pairs over the f32 peak), bytes read and
+    written once."""
+    B = args[1].shape[0]
+    gated = sum(int(K2.windowed_gate(args[1][b], *args[2:5], args[5][b], args[7][b],
+                                     args[8][b], args[9][b]).sum()) for b in range(B))
+    N1, N2 = args[0].shape[0], args[6].shape[1]
+    ops_s = gated * 512 / INT8_OPS_PER_S + B * N1 * N2 * K2_GATE_OPS / F32_OPS_PER_S
+    nbytes = sum(a.numel() * a.element_size() for a in args) + B * N1 * 16
+    bytes_s = nbytes / HBM_BYTES_PER_S
+    return 1e3 * max(ops_s, bytes_s), "operations" if ops_s >= bytes_s else "bytes", gated
+
+
+def phase_k2_batched(real):
+    k2_batched_check(real, "the fleet's first real step")
+    ties, _ = k2_robot_inputs(3, 300, 997, seed=6, pool=1)
+    k2_batched_check([a.cuda() for a in ties], "all-ties inputs at B = 3")
+    B = real[1].shape[0]
+    singles = [[a if i in (0, 2, 3, 4) else a[b].contiguous() for i, a in enumerate(real)]
+               for b in range(B)]
+    bound, by, gated = k2_batched_bound(real)
+    t = dict(
+        B=B, shape_N1N2=(real[0].shape[0], real[6].shape[1]), gated_pairs=gated,
+        ms=graph_ms(lambda: K2.windowed_top2_batched(*real)),
+        eager_ms=events_ms(lambda: K2.windowed_top2_batched(*real)),
+        singles_ms=graph_ms(lambda: [K2.windowed_top2(*x) for x in singles]),
+        singles_eager_ms=events_ms(lambda: [K2.windowed_top2(*x) for x in singles]),
+        # one robot eagerly through the wrapper (a direct launch for plain
+        # tensors), through the custom op that vmap reaches, and through the
+        # ctypes launch beneath both: the host cost of the op's dispatch
+        single_eager_ms=events_ms(lambda: K2.windowed_top2(*singles[0])),
+        single_op_eager_ms=events_ms(lambda: K2._top2_op(*singles[0])),
+        single_direct_eager_ms=events_ms(lambda: K2._launch(None, singles[0])),
+        op_eager_ms=events_ms(lambda: K2._top2_batched_op(*real)),
+        plain_ms=graph_ms(lambda: K2.windowed_top2_batched_plain(*real), inner=5, reps=20),
+        plain_eager_ms=events_ms(lambda: K2.windowed_top2_batched_plain(*real), reps=20),
+        bound_ms=bound, bound_by=by, max_abs_err=0.0,
+    )
+    log("kernel times K2 batched (ms) on the fleet's first real step: " + json.dumps(t))
+    return t
+
+
+def timed(name, fn, *args):
+    """Run one phase and print its seconds."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    log(f"phase {name}: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def main():
+    t_start = time.perf_counter()
     smi = phase_device()
-    phase_build()
+    timed("build", phase_build)
     cfg, oc = default_cfg()
     extract = OrbExtractor(oc)   # device=None: the card
     world = SyntheticWorld(cfg, n_landmarks=500, seed=0)
     gt = world.circle_trajectory(352, radius=2.5)[:N_FRAMES]
-    t = phase_kernel(extract, world, gt[0])
-    phase_extractor(extract, oc, world.render(gt[5]))
-    launches = phase_main_path(cfg, oc, extract, world, gt)
-    ts = phase_schur()
-    slam, run, k1_map, k2_map, k3_map, real_err = phase_mapping(cfg, world)
-    k2_err = phase_k2()
-    k1_loc, k2_loc, t2, res = phase_localization(cfg, world, slam)
-    f1 = phase_f1(world)
+    t = timed("kernel", phase_kernel, extract, world, gt[0])
+    timed("extractor", phase_extractor, extract, oc, world.render(gt[5]))
+    launches = timed("main path", phase_main_path, cfg, oc, extract, world, gt)
+    ts = timed("schur", phase_schur)
+    slam, run, k1_map, k2_map, k3_map, real_err = timed("mapping", phase_mapping, cfg, world)
+    k2_err = timed("k2", phase_k2)
+    k1_loc, k2_loc, t2, res = timed("localization", phase_localization, cfg, world, slam)
+    f1 = timed("f1", phase_f1, world)
     loop_world = SyntheticWorld(cfg, n_landmarks=1200, room=10.0, seed=4)
-    lp = phase_loop(loop_world)
-    relief = phase_relief(loop_world)
+    lp = timed("loop", phase_loop, loop_world)
+    relief = timed("relief", phase_relief, loop_world)
+    batch = timed("batch extraction", phase_batch_extract, extract, oc, world)
+    feeds, loc_feeds = timed("feeds (child process)", phase_feeds, MAP_DIR)
+    ms, vocab, _ = load_map(str(MAP_DIR))
+    fleet = timed("fleet tracking", phase_fleet_tracking, cfg, oc)
+    fleet_loc, real_b = timed("fleet localization", phase_fleet_localization, cfg, world, ms,
+                              vocab)
+    t2b = timed("k2 batched", phase_k2_batched, real_b)
     kernel = dict(
         name="fast_nms", route="cuda", source="se2lam_tpu_torch/csrc/fast_nms.cu",
         replaces="se2lam_tpu/frontend/pallas_fast.py:101", launches=k1_map,
@@ -1222,6 +1786,9 @@ def main():
         plain_ms=t["plain_ms"], plain_eager_ms=t["plain_eager_ms"],
         bound_ms=t["bound_ms"], bound_us=1e3 * t["bound_ms"], bound_by=t["bound_by"],
         library_ms=None, px_per_frame=t["px"], card=smi,
+        launches_batch_extraction=batch["k1_launches"],
+        launches_feeds={f: v["k1"] for f, v in feeds["launches"].items()},
+        launches_fleet_tracking={B: v["k1_launches"] for B, v in fleet.items()},
     )
     loc, glob = ts[LOCAL_BA_SHAPE], ts[GLOBAL_BA_SHAPE]
     schur_kernel = dict(
@@ -1235,6 +1802,7 @@ def main():
         global_ba=dict(glob, shape_KM=GLOBAL_BA_SHAPE), launches_loop=lp["k3"],
         launches_loop_joint_shape=lp["k3_joint"], launches_relief=relief["k3_launches"],
         joint_gba=lp["joint"], card=smi,
+        launches_feeds={f: v["k3"] for f, v in feeds["launches"].items()},
     )
     match_kernel = dict(
         name="windowed_top2", route="cuda", source="se2lam_tpu_torch/csrc/windowed_top2.cu",
@@ -1245,7 +1813,12 @@ def main():
         plain_eager_ms=t2["plain_eager_ms"], bound_ms=t2["bound_ms"], bound_by=t2["bound_by"],
         bound_all_pairs_ms=t2["bound_all_pairs_ms"], gated_pairs=t2["gated_pairs"],
         library_ms=None, shape_N1N2=t2["shape"], card=smi,
+        launches_feeds={f: v["k2"] for f, v in feeds["launches"].items()},
+        launches_localization_feeds={r["feed"]: r["k2_launches"] for r in loc_feeds},
+        launches_fleet_localization_per_chunk=fleet_loc["k2_launches_per_chunk"],
+        batched=t2b,
     )
+    log(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [kernel, schur_kernel, match_kernel]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -1253,4 +1826,4 @@ def main():
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(feeds_main(sys.argv[2]) if sys.argv[1:2] == ["--feeds"] else main())

@@ -37,14 +37,17 @@ def _tensor(a, dev):
 
 def orb_features_from_numpy(feats, device=None) -> OrbFeatures:
     """OrbFeatures from an object with the same fields holding numpy
-    arrays (or anything ``np.asarray`` takes); dtypes are kept."""
+    arrays (or anything ``np.asarray`` takes); dtypes and shapes are kept,
+    so leading axes (a chunk's frames, a fleet's robots) carry across."""
     dev = resolve_device(device)
     return OrbFeatures(*(_tensor(getattr(feats, k), dev) for k in OrbFeatures._fields))
 
 
 def track_state_from_numpy(ts, device=None) -> TrackState:
     """TrackState from an object with the same fields, converting the two
-    nested OrbFeatures (``ref_feats``, ``cur_feats``) as well."""
+    nested OrbFeatures (``ref_feats``, ``cur_feats``) as well; a fleet's
+    batched state (a leading robot axis on every field) carries across as
+    it is."""
     dev = resolve_device(device)
     fields = {}
     for k in TrackState._fields:

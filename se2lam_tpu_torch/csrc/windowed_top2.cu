@@ -24,6 +24,14 @@
 // few CTAs that hold them: the gate walk over N2 columns and the latency
 // of the gated pairs' descriptor loads.
 //
+// Robots: one launch serves B robots that match against one shared bank of
+// rows (a fleet localizing on one map). The rows' descriptors, windows and
+// octave gates are shared; each robot has its own projected positions and
+// row validity (B, N1) and its own columns (B, N2, ...). The grid's y axis
+// is the robot: a CTA offsets its per-robot pointers by blockIdx.y and runs
+// the single-robot body unchanged, so robot b's outputs are bitwise those
+// of a launch with B = 1 on robot b's inputs.
+//
 // Design: one warp per row, 8 rows to a 256-thread CTA. A CTA with no
 // valid row writes the empty result and exits. Otherwise it stages the
 // columns' gate attributes (x, y, octave, valid: 13 B a column) in shared
@@ -116,6 +124,19 @@ windowed_top2_kernel(const int8_t* __restrict__ d1, const float* __restrict__ xy
   __shared__ uint8_t s_ok[CT];
   __shared__ int s_q[WARPS][QCAP];
 
+  // this CTA's robot: its projected rows, its columns and its outputs
+  const long long rb = blockIdx.y;
+  xy1 += rb * 2 * N1;
+  v1 += rb * N1;
+  d2 += rb * 256 * N2;
+  xy2 += rb * 2 * N2;
+  oct2 += rb * N2;
+  v2 += rb * N2;
+  best_out += rb * N1;
+  second_out += rb * N1;
+  arg_out += rb * N1;
+  arg2_out += rb * N1;
+
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int row = blockIdx.x * WARPS + warp;
   const bool active = row < N1 && v1[row] != 0;   // uniform over the warp
@@ -189,22 +210,36 @@ windowed_top2_kernel(const int8_t* __restrict__ d1, const float* __restrict__ xy
 
 }  // namespace
 
-// Plain C entry for ctypes. d1: (N1, 256) int8, xy1: (N1, 2) f32, win, lo,
-// hi: (N1,) f32, v1: (N1,) bool; d2: (N2, 256) int8, xy2: (N2, 2) f32,
-// oct2: (N2,) int32, v2: (N2,) bool; outputs (N1,) f32, f32, int32, int32.
-// All contiguous, descriptors 16-byte aligned. Launches on `stream`,
-// allocates nothing, and returns cudaGetLastError().
-extern "C" int se2lam_windowed_top2(const void* d1, const void* xy1, const void* win,
-                                    const void* lo, const void* hi, const void* v1,
-                                    const void* d2, const void* xy2, const void* oct2,
-                                    const void* v2, int N1, int N2, void* best,
-                                    void* second, void* arg, void* arg2, void* stream) {
-  if (N1 <= 0) return 0;
-  const int grid = (N1 + WARPS - 1) / WARPS;
+// Plain C entries for ctypes. Rows, shared by all robots: d1: (N1, 256)
+// int8, win, lo, hi: (N1,) f32. Per robot: xy1: (B, N1, 2) f32, v1: (B, N1)
+// bool; columns d2: (B, N2, 256) int8, xy2: (B, N2, 2) f32, oct2: (B, N2)
+// int32, v2: (B, N2) bool; outputs (B, N1) f32, f32, int32, int32. All
+// contiguous, descriptors 16-byte aligned. One launch on `stream` for all
+// B robots; allocates nothing, and returns cudaGetLastError().
+extern "C" int se2lam_windowed_top2_batched(int B, const void* d1, const void* xy1,
+                                            const void* win, const void* lo, const void* hi,
+                                            const void* v1, const void* d2, const void* xy2,
+                                            const void* oct2, const void* v2, int N1, int N2,
+                                            void* best, void* second, void* arg, void* arg2,
+                                            void* stream) {
+  if (N1 <= 0 || B <= 0) return 0;
+  if (B > 65535) return (int)cudaErrorInvalidConfiguration;
+  const dim3 grid((N1 + WARPS - 1) / WARPS, B);
   windowed_top2_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
       (const int8_t*)d1, (const float*)xy1, (const float*)win, (const float*)lo,
       (const float*)hi, (const uint8_t*)v1, (const int8_t*)d2, (const float*)xy2,
       (const int32_t*)oct2, (const uint8_t*)v2, N1, N2, (float*)best, (float*)second,
       (int32_t*)arg, (int32_t*)arg2);
   return (int)cudaGetLastError();
+}
+
+// The one-robot entry: the batched launch with B = 1 (the shapes above
+// without their leading axis).
+extern "C" int se2lam_windowed_top2(const void* d1, const void* xy1, const void* win,
+                                    const void* lo, const void* hi, const void* v1,
+                                    const void* d2, const void* xy2, const void* oct2,
+                                    const void* v2, int N1, int N2, void* best,
+                                    void* second, void* arg, void* arg2, void* stream) {
+  return se2lam_windowed_top2_batched(1, d1, xy1, win, lo, hi, v1, d2, xy2, oct2, v2, N1, N2,
+                                      best, second, arg, arg2, stream);
 }

@@ -175,9 +175,11 @@ def preintegrate_se2(meas, cov, d_odo, odo_noise):
 
     eye = torch.eye(3, dtype=meas.dtype, device=meas.device)
     dr_perp = torch.stack([-dr[..., 1], dr[..., 0]], dim=-1)
-    Ak = eye.expand(cov.shape).clone()
+    # made from cov, so that under a vmap over robots they are batched and
+    # take the batched writes
+    Ak = torch.zeros_like(cov) + eye
     Ak[..., :2, 2] = torch.einsum("...ij,...j->...i", Phi, dr_perp)
-    Bk = eye.expand(cov.shape).clone()
+    Bk = torch.zeros_like(cov) + eye
     Bk[..., :2, :2] = Phi
     Sigma_v = torch.diag_embed(odo_noise**2).expand(cov.shape)
     new_cov = (

@@ -36,7 +36,7 @@ from ..ops.topk import top_k
 from .fast_nms import fast_nms, fast_nms_levels
 from .pattern import HALF_PATCH, N_BITS, PATTERN_X, PATTERN_Y
 
-__all__ = ["OrbConfig", "OrbFeatures", "OrbExtractor", "pack_bits"]
+__all__ = ["OrbConfig", "OrbFeatures", "OrbExtractor", "make_batch_extractor", "pack_bits"]
 
 
 class OrbConfig(NamedTuple):
@@ -286,8 +286,9 @@ def _extract_patches(img, ys, xs):
 
 
 def pack_bits(bits):
-    """(N, 256) {0,1} → (N, 8) uint32, little-endian within each word."""
-    b = bits.reshape(bits.shape[0], 8, 32).to(torch.int64)
+    """(..., N, 256) {0,1} → (..., N, 8) uint32, little-endian within each
+    word."""
+    b = bits.reshape(bits.shape[:-1] + (8, 32)).to(torch.int64)
     weights = torch.bitwise_left_shift(
         torch.ones(32, dtype=torch.int64, device=bits.device),
         torch.arange(32, dtype=torch.int64, device=bits.device),
@@ -384,17 +385,82 @@ class OrbExtractor(torch.nn.Module):
         maps = fast_nms_levels([levels[l].contiguous() for l in live],
                                cfg.fast_high, cfg.fast_low)
         outs = [self.extract_level(levels[l], l, m) for l, m in zip(live, maps)]
-        cat = {k: torch.cat([o[k] for o in outs]) for k in outs[0]}
-        bits, valid = cat["bits"], cat["valid"]
-        desc_pm1 = (1 - 2 * bits.to(torch.int8)).to(torch.int8)
-        # zero out invalid slots so matchers can rely on masks alone
-        desc_pm1 = torch.where(valid[:, None], desc_pm1, torch.zeros_like(desc_pm1))
-        return OrbFeatures(
-            xy=cat["xy"],
-            angle=cat["angle"],
-            octave=cat["octave"],
-            response=cat["response"],
-            valid=valid,
-            desc_bits=pack_bits(bits),
-            desc_pm1=desc_pm1,
-        )
+        return _assemble(outs)
+
+    def forward_batch(self, imgs) -> OrbFeatures:
+        """(k, H, W) stack → OrbFeatures with a leading k axis, frame by
+        frame the features of ``forward``. FAST+NMS takes every level of
+        every frame in one ``fast_nms_levels`` call (⌈levels·k/8⌉ kernel
+        launches); keypoint selection, orientation and BRIEF run under
+        ``torch.func.vmap`` over the frames, so their launches do not grow
+        with k. The pyramid alone is built frame by frame, with
+        ``forward``'s own products: cuBLAS picks a product's kernel, and
+        with it the order of its sums, by shape, so one product over the
+        stacked frames would change a level pixel's last ulp against the
+        frame alone and, through the subpixel refinement, the keyframes a
+        trajectory inserts."""
+        cfg = self.cfg
+        imgs = torch.as_tensor(imgs, device=self.device).to(torch.float32)
+        k = imgs.shape[0]
+        levels = [torch.stack(lv) for lv in zip(*(self.pyramid(im) for im in imgs))]
+        live = [l for l, q in enumerate(cfg.level_quotas) if q > 0]
+        maps = fast_nms_levels([levels[l][f].contiguous() for l in live for f in range(k)],
+                               cfg.fast_high, cfg.fast_low)
+        outs = []
+        for i, l in enumerate(live):
+            m = maps[i * k:(i + 1) * k]
+            stacked = [torch.stack([mf[j] for mf in m]) for j in range(3)]
+            outs.append(torch.vmap(
+                lambda im, hi, lo, raw, l=l: self.extract_level(im, l, (hi, lo, raw)))(
+                    levels[l], *stacked))
+        return _assemble(outs)
+
+
+def _assemble(outs) -> OrbFeatures:
+    """The levels' slot records (each with any leading axes) → OrbFeatures:
+    concatenated along the slot axis, descriptors packed and as ±1."""
+    cat = {k: torch.cat([o[k] for o in outs], dim=_slot_axis(k))
+           for k in outs[0]}
+    bits, valid = cat["bits"], cat["valid"]
+    desc_pm1 = (1 - 2 * bits.to(torch.int8)).to(torch.int8)
+    # zero out invalid slots so matchers can rely on masks alone
+    desc_pm1 = torch.where(valid[..., None], desc_pm1, torch.zeros_like(desc_pm1))
+    return OrbFeatures(
+        xy=cat["xy"],
+        angle=cat["angle"],
+        octave=cat["octave"],
+        response=cat["response"],
+        valid=valid,
+        desc_bits=pack_bits(bits),
+        desc_pm1=desc_pm1,
+    )
+
+
+def _slot_axis(name):
+    """The slot axis of a level record's field: last but one for the
+    per-slot vectors (xy, bits), else the last."""
+    return -2 if name in ("xy", "bits") else -1
+
+
+def make_batch_extractor(cfg: OrbConfig, cam=None, undistort: bool = False, device=None):
+    """(k, H, W) uint8 or f32 stack → OrbFeatures with a leading k axis
+    (port of se2lam_tpu/frontend/orb.py:make_batch_extractor): the stack
+    goes to the device as it is and is cast to f32 there, then
+    ``OrbExtractor.forward_batch``; with ``undistort`` the keypoints are
+    undistorted through ``cam`` as the per-frame path does. The JAX
+    version maps the frames one by one (``lax.map``) to bound a TPU's
+    memory; here the frames run batched."""
+    ext = OrbExtractor(cfg, device=device)
+    if undistort:
+        from ..ops.camera import undistort_points
+
+    def extract(img_stack):
+        if not torch.is_tensor(img_stack):
+            img_stack = torch.from_numpy(np.asarray(img_stack))
+        feats = ext.forward_batch(img_stack.to(ext.device))
+        if undistort:
+            feats = feats._replace(xy=undistort_points(cam, feats.xy))
+        return feats
+
+    extract.extractor = ext
+    return extract

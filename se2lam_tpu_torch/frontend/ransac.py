@@ -3,7 +3,9 @@ the cv::findFundamentalMat gates of src/Track.cpp:308-344).
 
 All trials run at once: (T, 8) samples → T normalized 8-point solves
 (inverse iteration on 9x9 normal matrices) → T×N Sampson tests → argmax.
-Fixed trial count and shapes, no host syncs.
+Fixed trial count and shapes, no host syncs. Its sums go through
+``ops.fixed_order``, so that under a fleet's ``torch.vmap`` on the card a
+robot's inliers do not depend on the fleet's size.
 
 The samples are the top 8 of masked Gumbel noise per trial. Torch cannot
 reproduce JAX's PRNG stream, so the caller passes either a
@@ -17,6 +19,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..ops.fixed_order import contract, matmul, rows_matvec, rows_vecmat, sum_points
 from ..ops.linalg import inv_psd_small
 
 __all__ = ["FundamentalResult", "ransac_fundamental", "draw_gumbel"]
@@ -31,10 +34,10 @@ class FundamentalResult(NamedTuple):
 def _normalize(pts, valid):
     """Hartley normalization over valid points: centroid 0, RMS √2."""
     w = valid.to(pts.dtype)
-    n = torch.clamp(w.sum(), min=1.0)
-    mean = (pts * w[:, None]).sum(dim=0) / n
+    n = torch.clamp(w.sum(), min=1.0)        # a count: exact in any order
+    mean = sum_points(pts * w[:, None], 0) / n
     d = torch.linalg.norm(pts - mean, dim=-1)
-    rms = torch.clamp((d * w).sum() / n, min=1e-9)
+    rms = torch.clamp(sum_points(d * w) / n, min=1e-9)
     # a true division: ``float / tensor`` would multiply by the reciprocal
     scale = torch.full_like(rms, math.sqrt(2.0)) / rms
     zero, one = torch.zeros_like(scale), torch.ones_like(scale)
@@ -58,7 +61,7 @@ def _min_eigvec(M, iters: int = 3):
     v = torch.ones(M.shape[:-1], dtype=M.dtype, device=M.device)
     v[..., 0] += 0.5
     for _ in range(iters):
-        v = torch.einsum("...ij,...j->...i", Minv, v)
+        v = contract("...ij,...j->...i", Minv, v, rows_matvec)
         v = v / torch.clamp(torch.linalg.norm(v, dim=-1, keepdim=True), min=1e-30)
     return v
 
@@ -72,14 +75,14 @@ def _eight_point(p1, p2):
     A = torch.stack(
         [x2 * x1, x2 * y1, x2, y2 * x1, y2 * y1, y2, x1, y1, ones], dim=-1
     )  # (T, 8, 9)
-    AtA = A.transpose(-1, -2) @ A
+    AtA = matmul(A.transpose(-1, -2), A)
     F = _min_eigvec(AtA).reshape(-1, 3, 3)
     # rank-2 projection: F ← F − u3 (u3ᵀ F v3) v3ᵀ with v3/u3 the smallest
     # right/left singular directions
-    v3 = _min_eigvec(F.transpose(-1, -2) @ F, iters=20)
-    u3_raw = torch.einsum("tij,tj->ti", F, v3)
+    v3 = _min_eigvec(matmul(F.transpose(-1, -2), F), iters=20)
+    u3_raw = contract("tij,tj->ti", F, v3, rows_matvec)
     u3 = u3_raw / torch.clamp(torch.linalg.norm(u3_raw, dim=-1, keepdim=True), min=1e-12)
-    s3 = (torch.einsum("ti,tij->tj", u3, F) * v3).sum(-1)   # (u3ᵀF)·v3
+    s3 = (contract("ti,tij->tj", u3, F, rows_vecmat) * v3).sum(-1)   # (u3ᵀF)·v3
     return F - s3[:, None, None] * (u3[:, :, None] * v3[:, None, :])
 
 
@@ -89,8 +92,8 @@ def _sampson(F, p1, p2):
     ones = torch.ones((p1.shape[0], 1), dtype=p1.dtype, device=p1.device)
     x1 = torch.cat([p1, ones], dim=-1)
     x2 = torch.cat([p2, ones], dim=-1)
-    Fx1 = x1 @ F.transpose(-1, -2)      # (T, N, 3) = F·x1
-    Ftx2 = x2 @ F                       # (T, N, 3) = Fᵀ·x2
+    Fx1 = matmul(x1, F.transpose(-1, -2))    # (T, N, 3) = F·x1
+    Ftx2 = matmul(x2, F)                     # (T, N, 3) = Fᵀ·x2
     num = (x2 * Fx1).sum(dim=-1) ** 2
     den = Fx1[..., 0] ** 2 + Fx1[..., 1] ** 2 + Ftx2[..., 0] ** 2 + Ftx2[..., 1] ** 2
     # a (near-)zero F makes 0/0: such a hypothesis rejects every point

@@ -6,7 +6,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["k2_inputs"]
+__all__ = ["k2_inputs", "k2_robot_inputs"]
 
 
 def k2_inputs(N1: int, N2: int, seed: int = 0, pool: int = 64):
@@ -29,3 +29,19 @@ def k2_inputs(N1: int, N2: int, seed: int = 0, pool: int = 64):
          (rng.uniform(0, 1, (N2, 2)) * [640, 480]).astype(np.float32),
          rng.integers(0, 5, N2).astype(np.int32), v2]
     return [torch.from_numpy(np.ascontiguousarray(a)) for a in x]
+
+
+ROW_ARGS = (0, 2, 3, 4)   # the rows' descriptors, windows and octave gates
+
+
+def k2_robot_inputs(B: int, N1: int, N2: int, seed: int = 0, pool: int = 64):
+    """B robots' inputs on one shared bank of rows: robot b's are
+    ``k2_inputs(N1, N2, seed + b, pool)`` with the rows' descriptors,
+    windows and octave gates of robot 0. Returns (the batched arguments of
+    ``windowed_top2_batched``, each robot's arguments of ``windowed_top2``)."""
+    singles = [k2_inputs(N1, N2, seed=seed + b, pool=pool) for b in range(B)]
+    rows = singles[0]
+    one = [[rows[i] if i in ROW_ARGS else x[i] for i in range(10)] for x in singles]
+    batched = [rows[i] if i in ROW_ARGS else torch.stack([x[i] for x in singles])
+               for i in range(10)]
+    return batched, one

@@ -21,7 +21,9 @@ def inv_psd_small(M, eps: float = 1e-30):
     """
     n = M.shape[-1]
     A = M.clone()
-    I = torch.eye(n, dtype=M.dtype, device=M.device).expand(M.shape).clone()
+    # made from M, so that under a vmap over M it is batched and takes the
+    # batched row writes below
+    I = torch.zeros_like(M) + torch.eye(n, dtype=M.dtype, device=M.device)
     not_k = ~torch.eye(n, dtype=torch.bool, device=M.device)
     for k in range(n):
         piv = A[..., k, k]

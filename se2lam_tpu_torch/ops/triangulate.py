@@ -7,6 +7,8 @@ from __future__ import annotations
 
 import torch
 
+from .fixed_order import contract, matmul, rows_vecmat
+
 __all__ = ["triangulate", "check_parallax", "parallax_cos"]
 
 # cos thresholds for 1..4 degrees of minimum parallax
@@ -31,8 +33,10 @@ def triangulate(pt1, pt2, P1, P2):
     # w := 1: least squares B·x ≈ -c with B = A[:, :3], c = A[:, 3]
     B = A[..., :3]
     c = A[..., 3]
-    M = B.transpose(-1, -2) @ B                       # (..., 3, 3)
-    rhs = -torch.einsum("...ij,...i->...j", B, c)     # (..., 3)
+    # (a fleet's vmap sums them in one order at any fleet size: fixed_order)
+    M = matmul(B.transpose(-1, -2), B)                # (..., 3, 3)
+    rhs = -contract("...ij,...i->...j", B, c,         # (..., 3)
+                    lambda B, c: rows_vecmat(c, B))
 
     m00, m01, m02 = M[..., 0, 0], M[..., 0, 1], M[..., 0, 2]
     m11, m12, m22 = M[..., 1, 1], M[..., 1, 2], M[..., 2, 2]

@@ -8,6 +8,14 @@ with depth/parallax gates, and the new-keyframe decision. The thread's
 mutable members are an explicit ``TrackState`` threaded through
 ``track_frame``. All shapes are static (feature capacity N) and the step
 reads nothing back to the host: only the caller reads ``need_kf``.
+
+Chunked tracking (``track_chunk``) runs the step over a stack of frames
+without reading anything back, for the chunked feeds of ``SlamSystem``;
+``state_at_step`` gives the exact state after any step of it. The RANSAC
+noise of every tracked frame comes from ``draw_track_noise``, which the
+per-frame and the chunked and pipelined feeds all call, once a frame, in
+frame order (``split_chain`` for a chunk): a replayed frame reuses its
+noise, so every feed sees the same draws.
 """
 from __future__ import annotations
 
@@ -21,12 +29,16 @@ from . import factors
 from .config import SystemConfig
 from .frontend.matcher import match_by_window
 from .frontend.orb import OrbFeatures
-from .frontend.ransac import ransac_fundamental
+from .frontend.ransac import draw_gumbel, ransac_fundamental
 from .ops import se2, se3
 from .ops.camera import CameraModel
 from .ops.triangulate import check_parallax, triangulate
 
-__all__ = ["TrackState", "TrackResult", "init_track_state", "track_frame", "constants"]
+__all__ = [
+    "TrackState", "TrackResult", "init_track_state", "track_frame", "constants",
+    "draw_track_noise", "split_chain", "StepFields", "ChunkSteps", "state_at_step",
+    "chunk_frame", "track_chunk",
+]
 
 
 class TrackState(NamedTuple):
@@ -253,3 +265,79 @@ def track_frame(
         need_kf=need,
         pose=pose,
     )
+
+
+def draw_track_noise(generator: torch.Generator, cfg: SystemConfig):
+    """One tracked frame's RANSAC noise, (ransac_trials, N) f32 from
+    ``generator`` on its device: the draw ``track_frame`` would make."""
+    return draw_gumbel(generator, (cfg.cap.ransac_trials, cfg.cap.n_features))
+
+
+def split_chain(draw, n: int):
+    """``n`` frames' RANSAC noise, (n, ransac_trials, N): ``draw()`` called
+    once a frame, in frame order, as ``n`` per-frame steps would call it
+    (the counterpart of the JAX package's key chain)."""
+    return torch.stack([draw() for _ in range(n)])
+
+
+class StepFields(NamedTuple):
+    """TrackState's fields that a tracking step changes, besides
+    ``cur_feats`` (the JAX package's ``ChunkSteps`` fields)."""
+
+    prev_matched: torch.Tensor
+    local_mps: torch.Tensor
+    local_mp_valid: torch.Tensor
+    good_prl: torch.Tensor
+    n_good_prl: torch.Tensor
+    pre_meas: torch.Tensor
+    pre_cov: torch.Tensor
+    last_odom: torch.Tensor
+    frames_since_kf: torch.Tensor
+    cur_pose: torch.Tensor
+    cur_odom: torch.Tensor
+    match_idx: torch.Tensor
+
+
+def _step_fields(ts: TrackState) -> StepFields:
+    return StepFields(*(getattr(ts, k) for k in StepFields._fields))
+
+
+class ChunkSteps(list):
+    """Per-step records of ``track_chunk``: entry j is step j's
+    ``StepFields`` (references to the step's own tensors, nothing copied),
+    or None where step j was not run."""
+
+
+def state_at_step(ts0: TrackState, cur_feats: OrbFeatures, steps: ChunkSteps,
+                  j: int) -> TrackState:
+    """The exact TrackState after chunk step ``j``: ``ts0`` gives the
+    reference-keyframe block (constant within a segment, which a keyframe
+    insertion ends), ``cur_feats`` the step's own features."""
+    return ts0._replace(cur_feats=cur_feats, **steps[j]._asdict())
+
+
+def chunk_frame(feats_stack: OrbFeatures, i: int) -> OrbFeatures:
+    """Frame ``i`` of features with a leading chunk axis (views)."""
+    return OrbFeatures(*(a[i] for a in feats_stack))
+
+
+def track_chunk(ts: TrackState, feats_stack: OrbFeatures, odo_stack, noise, start: int,
+                stop: int, cfg: SystemConfig):
+    """Track the frames ``start..stop-1`` of a chunk speculatively (no
+    keyframe insertion), reading nothing back: ``track_frame`` on each
+    frame's features (leading chunk axis k), odometry (k, 3) and noise
+    (k, ransac_trials, N), the state carried from step to step. Steps
+    outside [start, stop) are not run and report need_kf False and a zero
+    pose. Returns (final TrackState, (k,) need_kf, (k, 3) poses,
+    ChunkSteps). The caller reads the decisions once and, where a keyframe
+    fired at step j, rebuilds the state there with ``state_at_step`` and
+    replays the frames after it from the new keyframe."""
+    k = odo_stack.shape[0]
+    dev = ts.ref_pose.device
+    needs = [torch.zeros((), dtype=torch.bool, device=dev)] * k
+    poses = [torch.zeros(3, dtype=ts.ref_pose.dtype, device=dev)] * k
+    steps = ChunkSteps([None] * k)
+    for i in range(start, stop):
+        ts, res = track_frame(ts, chunk_frame(feats_stack, i), odo_stack[i], cfg, gumbel=noise[i])
+        needs[i], poses[i], steps[i] = res.need_kf, res.pose, _step_fields(ts)
+    return ts, torch.stack(needs), torch.stack(poses), steps

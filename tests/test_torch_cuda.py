@@ -16,7 +16,7 @@ from se2lam_tpu_torch.frontend import fast_nms as K1
 from se2lam_tpu_torch.frontend import windowed_match as K2
 from se2lam_tpu_torch.frontend.orb import OrbExtractor
 from se2lam_tpu_torch.io.synthetic import SyntheticWorld
-from se2lam_tpu_torch.kernels.samples import k2_inputs
+from se2lam_tpu_torch.kernels.samples import k2_inputs, k2_robot_inputs
 from se2lam_tpu_torch.solver import ba
 from se2lam_tpu_torch.solver import schur as K3
 
@@ -291,6 +291,114 @@ def test_windowed_top2_rejects_what_it_does_not_take(card):
     strided[1] = torch.zeros((64, 4), device=card)[:, ::2]
     with pytest.raises(ValueError):
         K2.windowed_top2(*strided)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,N1,N2,pool", [
+    (1, 8192, 1000, 64), (3, 8192, 1000, 64), (3, 300, 33, 1), (3, 300, 997, 1),
+], ids=["B1", "B3", "B3_ties_33", "B3_ties_997"])
+def test_windowed_top2_batched_equals_single_launches(card, B, N1, N2, pool):
+    """One launch for B robots on shared rows: robot b's four outputs are
+    bitwise those of a single launch on its inputs, and of the batched
+    plain version (all-ties inputs with ``pool=1``)."""
+    args, singles = k2_robot_inputs(B, N1, N2, seed=6, pool=pool)
+    args = [a.to(card) for a in args]
+    before = K2.windowed_top2.launches
+    got = K2.windowed_top2_batched(*args)
+    torch.cuda.synchronize()
+    assert K2.windowed_top2.launches == before + 1
+    plain = K2.windowed_top2_batched_plain(*args)
+    vm = torch.vmap(K2.windowed_top2, in_dims=(None, 0, None, None, None, 0, 0, 0, 0, 0))(*args)
+    assert K2.windowed_top2.launches == before + 2      # the vmap: one batched launch
+    for b, one in enumerate(singles):
+        want = K2.windowed_top2(*[a.to(card) for a in one])
+        for g, p, v, w in zip(got, plain, vm, want):
+            assert g.dtype == w.dtype and torch.equal(g[b], w)
+            assert torch.equal(p[b], w) and torch.equal(v[b], w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pool", [1, 64])
+def test_windowed_top2_batched_gated_columns(card, pool):
+    """Each robot's row 0 gated on its own columns: inside one 32-column
+    group, spread over several, on group edges, more than the queue takes."""
+    cols = [[40, 41, 45, 47, 63], [3, 70, 500, 996], [0, 31, 32, 33, 995, 996],
+            list(range(5, 997, 9))]
+    B, N2 = len(cols), 997
+    args, _ = k2_robot_inputs(B, 16, N2, seed=4, pool=pool)
+    args[5][:, 0] = True
+    args[7] = torch.full((B, N2, 2), 1e4)
+    for b, c in enumerate(cols):
+        args[7][b, c] = args[1][b, 0]
+    args[8] = torch.full((B, N2), int(args[3][0]), dtype=torch.int32)
+    args[9] = torch.ones((B, N2), dtype=torch.bool)
+    args = [a.to(card) for a in args]
+    got = K2.windowed_top2_batched(*args)
+    want = K2.windowed_top2_batched_plain(*args)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    for b, c in enumerate(cols):
+        assert int(got[2][b, 0]) in c and int(got[3][b, 0]) in c
+
+
+@pytest.mark.cuda
+def test_batch_extractor_launches_and_equals_forward(card):
+    """k = 3 bench frames in one batched extraction: ⌈5·3/8⌉ = 2 K1
+    launches, and frame by frame bitwise the features of ``forward`` (the
+    batch builds each frame's pyramid with ``forward``'s own products)."""
+    from se2lam_tpu_torch.frontend.orb import make_batch_extractor
+
+    cfg, oc = default_cfg()
+    world = SyntheticWorld(cfg, n_landmarks=500, seed=0)
+    gt = world.circle_trajectory(352, radius=2.5)
+    imgs = torch.from_numpy(np.stack([world.render(gt[i]) for i in (0, 5, 9)])
+                            .astype(np.uint8)).to(card)
+    extract = make_batch_extractor(oc, device=card)
+    before = K1.fast_nms.launches
+    fb = extract(imgs)
+    torch.cuda.synchronize()
+    assert K1.fast_nms.launches == before + 2
+    for i in range(3):
+        f1 = extract.extractor(imgs[i])
+        for name in f1._fields:
+            assert torch.equal(getattr(fb, name)[i], getattr(f1, name)), (i, name)
+
+
+def _random_map(cfg, card, seed=3):
+    from se2lam_tpu_torch.mapstate import empty_map
+
+    rng = np.random.default_rng(seed)
+    M = cfg.cap.max_mps
+    ms = empty_map(cfg.cap, device=card)
+    return ms._replace(
+        mp_pos=torch.from_numpy(np.stack([rng.uniform(1, 6, M), rng.uniform(-2, 2, M),
+                                          rng.uniform(-1, 1, M)], 1).astype(np.float32)).to(card),
+        mp_valid=torch.ones(M, dtype=torch.bool, device=card),
+        mp_desc=torch.from_numpy((1 - 2 * rng.integers(0, 2, (M, 256))).astype(np.int8)).to(card),
+    )
+
+
+@pytest.mark.cuda
+def test_fleet_localization_launches_k2_once_a_chunk_step(card):
+    """B = 3 robots x k = 2 frames against one map: one K2 launch a chunk
+    step for the whole fleet, and ⌈5·6/8⌉ = 4 K1 launches for the frames."""
+    from se2lam_tpu_torch.parallel import make_fleet_localizer
+
+    cfg, _ = default_cfg()
+    world = SyntheticWorld(cfg, n_landmarks=500, seed=0)
+    poses = np.asarray([[0.05 * j, 0.0, 0.01 * j] for j in range(1, 3)], np.float32)
+    imgs = np.stack([np.stack([world.render(p) for p in poses])] * 3)
+    extract_fn, step_fn = make_fleet_localizer(cfg, _random_map(cfg, card), device=card)
+    k1, k2 = K1.fast_nms.launches, K2.windowed_top2.launches
+    feats = extract_fn(torch.from_numpy(imgs).to(card))
+    out, tracked = step_fn(np.zeros((3, 3), np.float32), np.zeros((3, 3), np.float32), feats,
+                           np.stack([poses] * 3))
+    torch.cuda.synchronize()
+    assert out.shape == (3, 2, 3) and tracked.shape == (3, 2)
+    assert bool(torch.isfinite(out).all())
+    assert K2.windowed_top2.launches == k2 + 2
+    assert K1.fast_nms.launches == k1 + 4
 
 
 @pytest.mark.cuda

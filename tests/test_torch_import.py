@@ -23,10 +23,14 @@ import se2lam_tpu_torch.ops
 import se2lam_tpu_torch.tracking
 import se2lam_tpu_torch.mapstate, se2lam_tpu_torch.localmap, se2lam_tpu_torch.system
 import se2lam_tpu_torch.solver.ba, se2lam_tpu_torch.solver.schur, se2lam_tpu_torch.ops.topk
+import se2lam_tpu_torch.ops.fixed_order
 import se2lam_tpu_torch.io.trajectory, se2lam_tpu_torch.io.mapstorage
 import se2lam_tpu_torch.vocab, se2lam_tpu_torch.solver.poseonly, se2lam_tpu_torch.loopclose
 import se2lam_tpu_torch.frontend.windowed_match, se2lam_tpu_torch.localizer
 import se2lam_tpu_torch.solver.posegraph
+import se2lam_tpu_torch.utils, se2lam_tpu_torch.utils.chunking, se2lam_tpu_torch.utils.prefetch
+import se2lam_tpu_torch.parallel, se2lam_tpu_torch.parallel.fleet
+import se2lam_tpu_torch.parallel.fleet_localize
 new = set(sys.modules) - before
 bad = sorted(m for m in new
              if m.split(".")[0] in ("jax", "jaxlib")
@@ -114,12 +118,31 @@ def _load_map():
         load_map(d)
 
 
+def _batch_extractor():
+    from se2lam_tpu_torch.frontend.orb import OrbConfig, make_batch_extractor
+    make_batch_extractor(OrbConfig(height=64, width=64))
+
+
+def _fleet_tracker():
+    from se2lam_tpu_torch.entry import default_cfg
+    from se2lam_tpu_torch.parallel import make_fleet_tracker
+    make_fleet_tracker(default_cfg()[0])
+
+
+def _fleet_localizer():
+    from se2lam_tpu_torch.entry import default_cfg
+    from se2lam_tpu_torch.parallel import make_fleet_localizer
+    make_fleet_localizer(default_cfg()[0], _map_and_vocab()[0])
+
+
 @pytest.mark.parametrize("make", [_entry, _extractor, _camera, _convert, _empty_map,
                                   _slam_system, _default_slam_system, _loop_closer,
-                                  _localizer, _load_map],
+                                  _localizer, _load_map, _batch_extractor, _fleet_tracker,
+                                  _fleet_localizer],
                          ids=["entry", "extractor", "camera", "convert", "empty_map",
                               "slam_system", "default_slam_system", "loop_closer",
-                              "localizer", "load_map"])
+                              "localizer", "load_map", "batch_extractor", "fleet_tracker",
+                              "fleet_localizer"])
 def test_device_none_means_cuda_and_raises_without_it(make):
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: device=None runs there")

@@ -143,6 +143,9 @@ def test_cold_start_relocalizes_like_jax(fixture):
 
 
 def test_localizer_trajectory_and_unported_feeds(fixture, tmp_path):
+    """The trajectory file; and the feeds that were not ported before
+    slice 5 now run: the pipelined feed on features gives the per-frame
+    trajectory (the chunked feed is held in tests/test_torch_fleet_localize.py)."""
     fx = fixture
     _, tl = _pair(fx, reloc_min_inliers=30)
     for i in range(START, START + 3):
@@ -150,9 +153,14 @@ def test_localizer_trajectory_and_unported_feeds(fixture, tmp_path):
     tl.save_trajectory(str(tmp_path / "loc.csv"))
     lines = (tmp_path / "loc.csv").read_text().splitlines()
     assert len(lines) == 3 and lines[0].startswith("0,")
-    for feed in ("process_async", "process_features_async", "flush_async", "process_chunk"):
-        with pytest.raises(NotImplementedError, match="item 17"):
-            getattr(tl, feed)()
+    _, pl = _pair(fx, reloc_min_inliers=30)
+    pl.pipeline_depth = 2
+    for i in range(START, START + 3):
+        pl.process_features_async(_port_feats(fx["feats"][i]), fx["odo"][i])
+    pl.flush_async()
+    assert [(t, None if p is None else tuple(p)) for _, p, t in pl.trajectory] == [
+        (t, None if p is None else tuple(p)) for _, p, t in tl.trajectory]
+    assert pl.process_chunk([], []) == [] and pl.flush_async() == []
 
 
 def test_resume_matches_jax(fixture):

@@ -126,10 +126,27 @@ def test_default_system_closes_the_revisit_lap():
 
 @pytest.mark.parametrize("feed", ["process_async", "process_chunk", "process_chunk_async"])
 def test_feeds_of_later_slices_raise(feed):
-    s = SlamSystem(config_from_fields(dataclasses.asdict(lap_cfg())), enable_loops=False,
-                   device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        getattr(s, feed)()
+    """The feeds of slice 5 run now and give ``process``'s poses on the
+    lap's first 6 frames (the whole feeds are held in
+    tests/test_torch_chunked.py); what still raises is the mesh."""
+    cfg = config_from_fields(dataclasses.asdict(lap_cfg()))
+    world = SyntheticWorld(cfg, n_landmarks=500, room=10.0, seed=4)
+    seq = list(world.sequence(6, noise=(0.004, 0.002, 0.002)))
+    ref, s = (SlamSystem(cfg, enable_loops=False, device="cpu") for _ in range(2))
+    want = [ref.process(img, odo) for img, odo in seq]
+    imgs, odos = [f[0] for f in seq], [f[1] for f in seq]
+    if feed == "process_async":
+        got = [s.process_async(img, odo) for img, odo in seq]
+        got = [p for p in got if p is not None] + list(s.flush_async())
+    elif feed == "process_chunk":
+        got = list(s.process_chunk(imgs, odos))
+    else:
+        got = [p for r in (s.process_chunk_async(imgs[:1], odos[:1]),
+                           s.process_chunk_async(imgs[1:], odos[1:]), s.flush_chunk_async())
+               if r is not None for p in r]
+    np.testing.assert_array_equal(np.asarray(got), np.asarray(want))
+    with pytest.raises(NotImplementedError, match="item 20"):
+        SlamSystem(cfg, mesh=object(), device="cpu")
 
 
 def test_capacity_pressure_compacts():
