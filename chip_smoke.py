@@ -107,7 +107,42 @@ a nonzero exit if it fails:
 17. batched K2 on the fleet's first real step (B = 4, N1 = 8192, N2 =
    1000): one batched launch bitwise equal to the 4 single launches and
    to the batched plain version, all-ties inputs at B = 3, times in a
-   graph and eagerly beside the 4 single launches, and its bound.
+   graph and eagerly beside the 4 single launches, and its bound;
+18. dataset and drivers: the mapping phase's 60 frames written as uint8 to
+   a DatasetRoom under ``build/chip_smoke/`` with the port's writer (BMPs,
+   odometry, ground truth, CamConfig.yml and Settings.yml);
+   ``SystemConfig.from_yaml`` of the written files against the
+   configuration (every field the reference's YAML carries); the
+   native decoder (required: PIL is not installed there) bitwise on every
+   frame, and its ms a frame; SLAM frames/s from disk beside the same
+   decoded frames from memory, and the ``run_dataset`` driver's wall time.
+   In the deterministic child: ``drivers.run_dataset.main`` on the
+   directory (loops off) gives the keyframe frames and poses of an
+   in-process ``SlamSystem.process`` over the same decoded frames,
+   bitwise, and the map it writes reloads bitwise;
+19. live serving: a ``SlamServer`` (chunks of 8, then pipelined at depth 2)
+   on 127.0.0.1 in a thread, a ``LiveClient`` streaming the 60 frames. In
+   the deterministic child: 60 replies in order, all valid, their poses
+   bitwise those of ``process_chunk`` (and of ``process_async``) on a
+   fresh system; a ``Localizer`` served on the saved map's frames 10-49
+   against ``Localizer.process_chunk``. Outside that mode: frames/s
+   served, the client's reply latency (median, p95) and the card's
+   round trip (``utils.timing.measure_rtt``); a missing reply fails;
+20. map merging at the bench widths: two robots' maps (``SlamSystem(cfg,
+   enable_loops=False)``, the loop phase's keyframe cadence) on
+   overlapping segments of ``examples/fleet_demo.py``'s circuit, merged
+   with ``merge_maps`` for 3 draws (generators 42, 43, 44): the Schur
+   kernel's launches at (256, 8192) in the joint GBA and its check on
+   that real system, the merged map's tables consistent, its keyframes
+   both maps', at least one point fused, B's keyframes within 0.5 m of
+   ground truth in A's gauge, the pair, inliers, fused points and B's
+   error held to the JAX package's spread (``examples/merge_draws.py``);
+   the merged map saved and reloaded bitwise; a ``Localizer`` on it
+   relocalizing in both halves; a 2-robot fleet localizer on it (one K2
+   launch a chunk step); ``merge_many`` over three segments;
+   ``SlamSystem.resume`` on it adding keyframes; the merge's host time and
+   its parts (vocabulary, candidate verification, pose graph, joint GBA)
+   by CUDA events.
 
 Every phase prints its seconds, and the run its total.
 
@@ -133,13 +168,17 @@ import numpy as np
 import torch
 
 from se2lam_tpu_torch import localizer as loc_mod
-from se2lam_tpu_torch import localmap, loopclose, tracking
+from se2lam_tpu_torch import localmap, loopclose, mapmerge, tracking
 from se2lam_tpu_torch import vocab as vocab_mod
+from se2lam_tpu_torch.config import SystemConfig
+from se2lam_tpu_torch.drivers import run_dataset as run_dataset_driver
 from se2lam_tpu_torch.entry import default_cfg, entry
 from se2lam_tpu_torch.frontend import fast_nms as K1
 from se2lam_tpu_torch.frontend import windowed_match as K2
 from se2lam_tpu_torch.frontend.orb import OrbExtractor
-from se2lam_tpu_torch.io import load_map
+from se2lam_tpu_torch.io import (
+    DatasetRoom, LiveClient, SlamServer, load_map, native_loader, save_map, write_dataset_room,
+)
 from se2lam_tpu_torch.io.synthetic import SyntheticWorld, map_gauge
 from se2lam_tpu_torch.io.trajectory import ate_se2
 from se2lam_tpu_torch.kernels import build_all, load_library, ptxas_summary
@@ -150,6 +189,7 @@ from se2lam_tpu_torch.parallel import make_fleet_localizer, make_fleet_tracker
 from se2lam_tpu_torch.solver import ba
 from se2lam_tpu_torch.solver import schur as K3
 from se2lam_tpu_torch.system import SlamSystem
+from se2lam_tpu_torch.utils.timing import measure_rtt
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and f32 (non-tensor) op/s
 HBM_BYTES_PER_S = 3.35e12
@@ -218,9 +258,12 @@ LOOP_DRAWS = 3
 JAX_LOOP_KF = (28, 29)
 JAX_LOOP_ATE_MAX = 0.031525466523794274
 JAX_LOOP_ATE_CORRECTED_MAX = 0.022268728356580062
-# the joint GBA's Schur check: within 2x the f32 einsum's error from the
-# f64 plain version on the same inputs, and below 1e-4 of max|S|
-JOINT_SCHUR_REL_MAX = 1e-4
+# the joint GBA's Schur check: the kernel's own error from the f64 plain
+# version on the same inputs, relative to max|S|. In the loop phase on an
+# H100 (700 W) the kernel has read 1.6e-7 to 1.11e-6; the f32 einsum's
+# error (printed beside it, with the ratio) wanders with the run's inputs
+# as much, so it sets no bound
+JOINT_SCHUR_REL_MAX = 2e-6
 # capacity relief on the same scene: bank sizes at which both reliefs run
 # (examples/loop_draws.py, CPU)
 RELIEF_KFS, RELIEF_MPS, RELIEF_FRAMES = 16, 2048, 72
@@ -238,6 +281,35 @@ FLEET_SIZES, FLEET_FRAMES = (1, 2, 4, 8), 16
 FLEET_POSE_TOL = 1e-5          # the JAX package's tests/test_fleet.py
 FLEET_LOC_STARTS, FLEET_LOC_K, FLEET_LOC_CHUNKS = (10, 12, 14, 16), 8, 4
 FLEET_LOC_NOISE_SEED = 20      # robot r's odometry noise seed is 20 + r
+# slice 6: the DatasetRoom written from the mapping phase's frames, the
+# driver's output, and the live server
+DATA_DIR = MAP_DIR.parent / "dataset"
+DRIVER_DIR = MAP_DIR.parent / "run_dataset"
+SERVE_CHUNK, SERVE_DEPTH = 8, 2
+LIVE_TIMEOUT_S = 120.0         # a reply later than this fails the phase
+CAMERA_FPS = 30.0              # the paced client's rate, a camera's
+# map merging: examples/fleet_demo.py's circuit at the bench widths, with
+# the loop phase's keyframe cadence (at the default 8-30 frames neither
+# package merges it: robot A keeps ~5 keyframes 36 degrees apart)
+MERGE_CIRCLE, MERGE_A, MERGE_B = 80, range(0, 48), range(24, 80)
+MERGE_NOISE_SEED = 0
+MERGE_DRAWS = (42, 43, 44)
+MERGE_MANY_SEGMENTS = (range(0, 40), range(24, 64), range(48, 80))
+MERGE_B_ERR_MAX = 0.5          # tests/test_mapmerge.py:82
+# The JAX package's spread on this scene (examples/merge_draws.py, CPU:
+# `--maps 8 --draws 1` and `--maps 12 --first-map 8 --draws 1`, mapping
+# draws 0-19; `--maps 3 --draws 3` shows the merge draws change nothing):
+# in every draw the seam is a view both robots keyframed (frame 43 in 16
+# draws, 35 in 3, 39 in 1), so the alignment takes the zero-baseline path;
+# 188-214 alignment inliers, 56-114 points fused, B's worst keyframe error
+# in A's gauge 0.0926-0.1414 m. A card draw passes with such a seam (one
+# frame, inside the overlap), no fewer alignment inliers and fused points
+# than the fewest of any JAX draw (a seam no weaker than JAX's; more is no
+# fault: the card's maps hold other keyframes and points), and an error no
+# worse than 1.5x the worst JAX draw (the rule of the other phases' errors).
+JAX_MERGE_PAIR_FRAMES = ((43, 43), (35, 35), (39, 39))
+JAX_MERGE_ALIGN_MIN, JAX_MERGE_FUSED_MIN = 188, 56
+JAX_MERGE_B_ERR_MAX = 0.14142055809497833
 
 
 def log(msg):
@@ -1123,7 +1195,6 @@ def phase_loop(world):
     """The counted loop-closing run (every kernel launch and the Schur
     kernel's shapes), more RANSAC draws, then the Schur kernel on the
     damped system of the first joint GBA of the counted run."""
-    dev = torch.device("cuda")
     cfg, gt, odo, imgs = loop_scene(world)
 
     # the shape of every Schur reduction the solver asks for (the kernel's
@@ -1168,12 +1239,22 @@ def phase_loop(world):
                          f"ATE <= {1.5 * JAX_LOOP_ATE_MAX}, corrected <= "
                          f"{1.5 * JAX_LOOP_ATE_CORRECTED_MAX})")
 
-    # the Schur kernel on the first joint GBA's real damped system, against
-    # the plain version in f64, beside the f32 einsum pair on the same inputs
-    (ms_in, cfg_in), kw = joint_in.first[0][:2], joint_in.first[1]
-    c = tracking.constants(cfg, dev)
+    # the Schur kernel on the first joint GBA's real damped system
+    joint = joint_schur_check(joint_in.first, "the loop phase's joint GBA")
+    return dict(k1=k1, k2=k2, k3=k3, k3_joint=n_joint, run=run, joint=joint, draws=runs)
+
+
+def joint_schur_check(first_call, what, times=True):
+    """The Schur kernel on the real damped system of a joint GBA, given the
+    arguments of its ``run_global_ba_joint`` call: within
+    JOINT_SCHUR_REL_MAX of max|S| from the plain version in f64, beside the
+    f32 einsum pair's error on the same inputs (information), and, with
+    ``times``, its times there."""
+    dev = torch.device("cuda")
+    (ms_in, cfg_in), kw = first_call[0][:2], first_call[1]
+    c = tracking.constants(cfg_in, dev)
     prob = loopclose._joint_problem(ms_in, cfg_in)
-    ba_cfg = loopclose._joint_ba_cfg(ms_in, cfg_in, kw.get("iters", cfg.gm_joint_ba_iters))
+    ba_cfg = loopclose._joint_ba_cfg(ms_in, cfg_in, kw.get("iters", cfg_in.gm_joint_ba_iters))
     _, _, Hpx, Hxx_inv, _, _ = ba.damped_system(
         prob, c["cam"], c["Tcb"], ba_cfg, torch.tensor(ba_cfg.lm_init_lambda, device=dev))
     want = K3.point_reduction_plain(Hpx.double(), Hxx_inv.double())
@@ -1184,25 +1265,28 @@ def phase_loop(world):
     k3_err = float((got.double() - want).abs().max())
     einsum_err = float((plain32.double() - want).abs().max())
     rel, einsum_rel = k3_err / scale, einsum_err / scale
-    if not (math.isfinite(rel) and rel <= 2 * einsum_rel and rel < JOINT_SCHUR_REL_MAX):
-        raise SystemExit(f"chip_smoke: Schur kernel on the joint GBA {tuple(Hpx.shape)}: relative "
-                         f"error {rel} (f32 einsum {einsum_rel}), want <= 2x the einsum's and "
-                         f"< {JOINT_SCHUR_REL_MAX}")
-    bound, by = schur_bound(Hpx.shape[0], Hpx.shape[2])
-    fns = dict(kernel=lambda: K3.point_reduction(Hpx, Hxx_inv),
-               plain=lambda: K3.point_reduction_plain(Hpx, Hxx_inv),
-               library=lambda: torch.einsum("kamb,mbd,lcmd->klac", Hpx, Hxx_inv, Hpx))
-    t = {name: (graph_ms(f, inner=10, reps=20), events_ms(f, reps=20)) for name, f in fns.items()}
+    if not (math.isfinite(rel) and rel <= JOINT_SCHUR_REL_MAX):
+        raise SystemExit(f"chip_smoke: Schur kernel on {what} {tuple(Hpx.shape)}: relative "
+                         f"error {rel} > {JOINT_SCHUR_REL_MAX} (f32 einsum {einsum_rel})")
     joint = dict(
         shape_KM=(Hpx.shape[0], Hpx.shape[2]), max_abs_err=k3_err, rel_err=rel,
-        einsum_f32_rel_err=einsum_rel, ms=t["kernel"][0], eager_ms=t["kernel"][1],
-        plain_ms=t["plain"][0], plain_eager_ms=t["plain"][1], library_ms=t["library"][0],
-        library_eager_ms=t["library"][1], bound_ms=bound, bound_by=by,
+        rel_bound=JOINT_SCHUR_REL_MAX, einsum_f32_rel_err=einsum_rel,
+        rel_err_over_einsum=rel / max(einsum_rel, 1e-30),
         valid_points=int(prob.point_valid.sum()), valid_kfs=int(prob.pose_valid.sum()),
         valid_obs=int(prob.obs_valid.sum()))
-    log("kernel: Schur on the joint GBA's real damped system (ms; graph, and eager_): "
+    if times:
+        bound, by = schur_bound(Hpx.shape[0], Hpx.shape[2])
+        fns = dict(kernel=lambda: K3.point_reduction(Hpx, Hxx_inv),
+                   plain=lambda: K3.point_reduction_plain(Hpx, Hxx_inv),
+                   library=lambda: torch.einsum("kamb,mbd,lcmd->klac", Hpx, Hxx_inv, Hpx))
+        t = {name: (graph_ms(f, inner=10, reps=20), events_ms(f, reps=20))
+             for name, f in fns.items()}
+        joint.update(ms=t["kernel"][0], eager_ms=t["kernel"][1], plain_ms=t["plain"][0],
+                     plain_eager_ms=t["plain"][1], library_ms=t["library"][0],
+                     library_eager_ms=t["library"][1], bound_ms=bound, bound_by=by)
+    log(f"kernel: Schur on {what}'s real damped system (ms; graph, and eager_): "
         + json.dumps(joint))
-    return dict(k1=k1, k2=k2, k3=k3, k3_joint=n_joint, run=run, joint=joint, draws=runs)
+    return joint
 
 
 def phase_relief(world):
@@ -1484,12 +1568,14 @@ FEEDS_CHILD_TIMEOUT_S = 600
 
 
 def phase_feeds(map_dir):
-    """Phases 13 and 14 in a child process, which alone sets cuBLAS's
+    """Phases 13 and 14, and the deterministic parts of 18 and 19, in a
+    child process, which alone sets cuBLAS's
     deterministic workspace (``CUBLAS_WORKSPACE_CONFIG``, read once, when a
     process first uses cuBLAS; ``torch.use_deterministic_algorithms`` needs
     it). Every other phase runs with cuBLAS's default workspace. The child
     builds nothing: it loads the kernels built here and the saved map.
-    Returns (SLAM feeds, localization feeds)."""
+    Returns the child's results: the SLAM and localization feeds, the
+    dataset driver and the live server against their feeds."""
     out = Path(map_dir).parent / "feeds.json"
     out.unlink(missing_ok=True)
     sys.stdout.flush()
@@ -1498,13 +1584,13 @@ def phase_feeds(map_dir):
                        timeout=FEEDS_CHILD_TIMEOUT_S)
     if r.returncode != 0:
         raise SystemExit(f"chip_smoke: the feeds' process exited with code {r.returncode}")
-    got = json.loads(out.read_text())
-    return got["slam"], got["localization"]
+    return json.loads(out.read_text())
 
 
 def feeds_main(out):
-    """The child of ``phase_feeds``: phases 13 and 14, their results as JSON
-    in ``out``."""
+    """The child of ``phase_feeds``: phases 13 and 14, the run_dataset
+    driver of phase 18 and the comparisons of phase 19, their results as
+    JSON in ``out``."""
     if os.environ.get("CUBLAS_WORKSPACE_CONFIG") != ":4096:8":
         raise SystemExit("chip_smoke --feeds: run with CUBLAS_WORKSPACE_CONFIG=:4096:8")
     cfg, _ = default_cfg()
@@ -1513,7 +1599,10 @@ def feeds_main(out):
     feeds = timed("feeds slam", phase_feeds_slam, cfg, world, loop)
     ms, vocab, _ = load_map(str(MAP_DIR))
     loc_feeds = timed("feeds localization", phase_feeds_localization, cfg, world, ms, vocab)
-    Path(out).write_text(json.dumps(dict(slam=feeds, localization=loc_feeds)))
+    driver = timed("dataset driver", phase_dataset_driver)
+    live = timed("live serving (deterministic)", phase_live_compare, cfg, world, ms, vocab)
+    Path(out).write_text(json.dumps(dict(slam=feeds, localization=loc_feeds, driver=driver,
+                                         live=live)))
     return 0
 
 
@@ -1739,6 +1828,463 @@ def phase_k2_batched(real):
     return t
 
 
+# -- slice 6: the dataset and its driver, live serving, map merging --
+
+
+def mapping_frames(world):
+    """The mapping phase's ground truth, odometry and frames, the frames as
+    the uint8 a dataset on disk and the wire carry."""
+    gt = world.circle_trajectory(352, radius=2.5)[:MAP_FRAMES]
+    odo = world.odometry(gt, noise=ODO_NOISE, seed=1)
+    return gt, odo, [np.clip(world.render(p), 0, 255).astype(np.uint8) for p in gt]
+
+
+def dataset_root():
+    return str(DATA_DIR / "DatasetRoom")
+
+
+def dataset_cfg():
+    """The configuration read back from the written dataset's YAMLs."""
+    return SystemConfig.from_yaml(str(DATA_DIR / "CamConfig.yml"), str(DATA_DIR / "Settings.yml"))
+
+
+def feed_frames(slam, frames):
+    """``slam.process`` over (image, odometry) pairs: (frames fed, seconds,
+    ending in a synchronise)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    n = 0
+    for img, o in frames:
+        slam.process(img, o)
+        n += 1
+    torch.cuda.synchronize()
+    return n, time.perf_counter() - t0
+
+
+def phase_dataset(cfg, world):
+    """Write the mapping phase's frames as a DatasetRoom, read the YAMLs and
+    frames back through the native decoder, and time SLAM from disk beside
+    the same frames from memory and the driver end to end."""
+    import dataclasses
+    import shutil
+
+    gt, odo, frames = mapping_frames(world)
+    shutil.rmtree(DATA_DIR, ignore_errors=True)
+    t0 = time.perf_counter()
+    root = write_dataset_room(str(DATA_DIR), frames, odo, cfg, gt=gt)
+    write_s = time.perf_counter() - t0
+    ycfg = dataset_cfg()
+    # the reference's format carries Tbc as a Rodrigues vector printed to 10
+    # digits, and the keyframe cadence only as fps (fps // 3 to fps frames)
+    same = dataclasses.replace(ycfg, Tbc=cfg.Tbc, min_frames_between_kf=cfg.min_frames_between_kf,
+                               max_frames_between_kf=cfg.max_frames_between_kf) == cfg
+    tbc_err = float(np.abs(np.asarray(ycfg.Tbc) - np.asarray(cfg.Tbc)).max())
+    cadence = (ycfg.min_frames_between_kf, ycfg.max_frames_between_kf)
+    if not same or tbc_err > 1e-9 or cadence != (cfg.fps // 3, cfg.fps):
+        raise SystemExit(f"chip_smoke: SystemConfig.from_yaml of the written dataset differs: "
+                         f"fields equal {same}, Tbc {tbc_err}, cadence {cadence}")
+    ds = DatasetRoom(root)
+    if not ds.use_native:
+        raise SystemExit("chip_smoke: DatasetRoom did not take the native decoder")
+    t0 = time.perf_counter()
+    decoded = list(ds)
+    stream_s = time.perf_counter() - t0
+    bad = [i for i, ((img, _), want) in enumerate(zip(decoded, frames))
+           if img.dtype != np.uint8 or not np.array_equal(img, want)]
+    if len(decoded) != MAP_FRAMES or bad:
+        raise SystemExit(f"chip_smoke: the dataset read back {len(decoded)} frames, "
+                         f"frames {bad} differ from those written")
+    decode_ms = []
+    for i in range(MAP_FRAMES):
+        t0 = time.perf_counter()
+        native_loader.decode_bmp(ds.image_path(i))
+        decode_ms.append(1e3 * (time.perf_counter() - t0))
+
+    # timed outside deterministic mode: disk against memory, the driver
+    mem = [(torch.from_numpy(img), o) for img, o in decoded]
+    feed_frames(SlamSystem(ycfg, enable_loops=False), mem[:12])            # warm-up
+    K1.fast_nms.launches = K2.windowed_top2.launches = K3.point_reduction.launches = 0
+    slam = SlamSystem(ycfg, enable_loops=False,
+                      generator=torch.Generator(device="cuda").manual_seed(0))
+    n_disk, disk_s = feed_frames(slam, DatasetRoom(root))
+    k1, k2, k3 = K1.fast_nms.launches, K2.windowed_top2.launches, K3.point_reduction.launches
+    n_mem, mem_s = feed_frames(SlamSystem(ycfg, enable_loops=False,
+                                          generator=torch.Generator(device="cuda").manual_seed(0)),
+                               mem)
+    t0 = time.perf_counter()
+    run_dataset_driver.main([root, "--out", str(DRIVER_DIR.parent / "run_dataset_timed"),
+                             "--frames", str(MAP_FRAMES), "--no-loops"])
+    driver_s = time.perf_counter() - t0
+    out = dict(frames=n_disk, write_s=write_s, decode_ms_per_frame=float(np.median(decode_ms)),
+               prefetch_stream_ms_per_frame=1e3 * stream_s / MAP_FRAMES,
+               disk_frames_per_s=n_disk / disk_s, memory_frames_per_s=n_mem / mem_s,
+               driver_wall_s=driver_s, kf_frames=slam.kf_frame_ids, tbc_err=tbc_err,
+               cadence=cadence, k1_launches=k1, k2_launches=k2, k3_launches=k3,
+               n_local_ba=slam.n_local_ba)
+    log("dataset: " + json.dumps(out))
+    if k1 != MAP_FRAMES or k2 < 1 or k3 != ycfg.local_iter * slam.n_local_ba or k3 < 1:
+        raise SystemExit("chip_smoke: SLAM from disk launched " + json.dumps(out))
+    return out
+
+
+def slam_bits(slam):
+    """What the disk and serving comparisons hold bitwise: keyframe frames,
+    the live keyframe poses and every frame's pose."""
+    n = slam.n_keyframes()
+    return (slam.kf_frame_ids, slam.ms.kf_pose[:n].cpu().numpy().tobytes(),
+            np.asarray([p for _, p in slam.trajectory], np.float32).tobytes())
+
+
+def phase_dataset_driver():
+    """In the deterministic child: the run_dataset driver on the written
+    dataset against ``process`` over the same decoded frames, and its saved
+    map reloaded."""
+    import shutil
+
+    shutil.rmtree(DRIVER_DIR, ignore_errors=True)
+    root = dataset_root()
+    with deterministic():
+        slam = run_dataset_driver.main([root, "--out", str(DRIVER_DIR), "--frames",
+                                        str(MAP_FRAMES), "--no-loops"])
+        ref = SlamSystem(dataset_cfg(), enable_loops=False,
+                         generator=torch.Generator(device="cuda").manual_seed(0))
+        feed_frames(ref, DatasetRoom(root))
+    ms, _vocab, info = load_map(str(DRIVER_DIR / "map"))
+    reload_ok = all(torch.equal(a.cpu(), b.cpu()) for a, b in zip(ms, slam.ms))
+    out = dict(kf_frames=slam.kf_frame_ids, want_kf_frames=ref.kf_frame_ids,
+               same_bits=slam_bits(slam) == slam_bits(ref), map_reloads_bitwise=reload_ok,
+               n_kf_saved=info["n_kf"])
+    log("dataset driver (deterministic mode): " + json.dumps(out))
+    if not (out["same_bits"] and reload_ok and slam.n_keyframes() >= 2):
+        raise SystemExit("chip_smoke: the run_dataset driver against process: " + json.dumps(out))
+    return out
+
+
+def serve(system, frames, odos, fps=0.0, **kw):
+    """Stream (frame, odometry) pairs through a ``SlamServer`` on 127.0.0.1
+    in a thread: a sender thread writes every frame (as fast as it can, or
+    paced at ``fps``) while this thread reads the replies. Returns the
+    replies (frame id, pose, valid) and each frame's send and reply times.
+    A reply missing for LIVE_TIMEOUT_S fails."""
+    import threading
+
+    srv = SlamServer(system, **kw).start()
+    t_send = [0.0] * len(frames)
+    t_recv = [0.0] * len(frames)
+    replies = []
+    try:
+        H, W = frames[0].shape
+        cl = LiveClient(srv.address, H, W, timeout_s=LIVE_TIMEOUT_S)
+
+        def send():
+            t0 = time.perf_counter()
+            for i, (img, o) in enumerate(zip(frames, odos)):
+                if fps > 0:
+                    time.sleep(max(0.0, t0 + i / fps - time.perf_counter()))
+                t_send[i] = time.perf_counter()
+                cl.send_frame(img, o)
+
+        sender = threading.Thread(target=send, daemon=True)
+        sender.start()
+        for _ in frames:
+            try:
+                fid, pose, ok = cl.recv_pose()
+            except (OSError, ConnectionError) as e:
+                raise SystemExit(f"chip_smoke: the live server sent {len(replies)} of "
+                                 f"{len(frames)} replies, then: {e!r}")
+            t_recv[fid] = time.perf_counter()
+            replies.append((fid, pose, ok))
+        sender.join(timeout=LIVE_TIMEOUT_S)
+        cl.close()
+    finally:
+        srv.stop()
+    if [r[0] for r in replies] != list(range(len(frames))) or srv.frames_served != len(frames):
+        raise SystemExit(f"chip_smoke: the live server replied to frames "
+                         f"{[r[0] for r in replies]} ({srv.frames_served} served)")
+    return replies, np.asarray(t_send), np.asarray(t_recv)
+
+
+def live_inputs(world):
+    _, odo, frames = mapping_frames(world)
+    return frames, np.asarray(odo, np.float32)
+
+
+def fresh_slam(cfg):
+    return SlamSystem(cfg, enable_loops=False,
+                      generator=torch.Generator(device="cuda").manual_seed(0))
+
+
+def phase_live_compare(cfg, world, ms, vocab):
+    """In the deterministic child: served SLAM (chunked, then pipelined)
+    and a served Localizer, each against the feed it drives on a fresh
+    estimator; the poses cross the wire as f32, so they compare bitwise."""
+    frames, odo = live_inputs(world)
+    loc_odo = np.asarray(world.odometry(world.circle_trajectory(352, radius=2.5)[:MAP_FRAMES],
+                                        noise=LOC_NOISE, seed=9), np.float32)
+    out = {}
+    with deterministic():
+        replies, _, _ = serve(fresh_slam(cfg), frames, odo, chunk=SERVE_CHUNK)
+        ref = fresh_slam(cfg)
+        want = np.concatenate([ref.process_chunk(frames[i:i + SERVE_CHUNK], odo[i:i + SERVE_CHUNK])
+                               for i in range(0, MAP_FRAMES, SERVE_CHUNK)])
+        got = np.stack([r[1] for r in replies])
+        out["chunked"] = dict(all_valid=all(r[2] for r in replies),
+                              same_bits=got.tobytes() == want.astype(np.float32).tobytes())
+
+        replies, _, _ = serve(fresh_slam(cfg), frames, odo, pipeline=SERVE_DEPTH)
+        ref = fresh_slam(cfg)
+        ref.pipeline_depth = SERVE_DEPTH
+        for img, o in zip(frames, odo):
+            ref.process_async(img, o)
+        ref.flush_async()
+        want = np.stack([p for _, p in ref.trajectory]).astype(np.float32)
+        got = np.stack([r[1] for r in replies])
+        out["pipelined"] = dict(all_valid=all(r[2] for r in replies),
+                                same_bits=got.tobytes() == want.tobytes())
+
+        li = [frames[i] for i in LOC_FRAMES]
+        lo = loc_odo[list(LOC_FRAMES)]
+
+        def loc():
+            return Localizer(cfg, ms, vocab, generator=torch.Generator(device="cuda").manual_seed(7))
+
+        K2.windowed_top2.launches = 0
+        replies, _, _ = serve(loc(), li, lo, chunk=SERVE_CHUNK)
+        k2 = K2.windowed_top2.launches
+        ref = loc()
+        want = []
+        for c in range(0, len(li), SERVE_CHUNK):
+            want.extend(ref.process_chunk(li[c:c + SERVE_CHUNK], lo[c:c + SERVE_CHUNK]))
+        flags = [r[2] for r in replies] == [p is not None for p in want]
+        same = flags and all(r[1].tobytes() == np.asarray(w, np.float32).tobytes()
+                             for r, w in zip(replies, want) if w is not None)
+        out["localizer"] = dict(localized=sum(r[2] for r in replies), same_flags=flags,
+                                same_bits=same, k2_launches=k2)
+    log("live serving (deterministic mode): " + json.dumps(out))
+    if not (out["chunked"]["all_valid"] and out["chunked"]["same_bits"]
+            and out["pipelined"]["all_valid"] and out["pipelined"]["same_bits"]
+            and same and out["localizer"]["localized"] >= len(LOC_FRAMES) // 2
+            and k2 >= out["localizer"]["localized"]):
+        raise SystemExit("chip_smoke: the live server against its feeds: " + json.dumps(out))
+    return out
+
+
+def phase_live_timed(cfg, world):
+    """Outside deterministic mode, chunked and pipelined: frames/s served
+    to a client that sends as fast as it can, with the kernels' launches,
+    and the reply latency (median, p95) of a client paced at a camera's
+    CAMERA_FPS; then the card's round trip."""
+    frames, odo = live_inputs(world)
+    out = {}
+    for name, kw in (("chunked", dict(chunk=SERVE_CHUNK)), ("pipelined", dict(pipeline=SERVE_DEPTH))):
+        K1.fast_nms.launches = K2.windowed_top2.launches = K3.point_reduction.launches = 0
+        replies, ts, tr = serve(fresh_slam(cfg), frames, odo, **kw)
+        launches = dict(k1_launches=K1.fast_nms.launches, k2_launches=K2.windowed_top2.launches,
+                        k3_launches=K3.point_reduction.launches)
+        paced, ps, pr = serve(fresh_slam(cfg), frames, odo, fps=CAMERA_FPS, **kw)
+        lat = 1e3 * (pr - ps)
+        out[name] = dict(frames_per_s=len(frames) / (tr.max() - ts.min()),
+                         burst_latency_ms_median=float(np.median(1e3 * (tr - ts))),
+                         paced_fps=CAMERA_FPS, latency_ms_median=float(np.median(lat)),
+                         latency_ms_p95=float(np.percentile(lat, 95)),
+                         all_valid=all(r[2] for r in replies + paced), **launches)
+    out["rtt_ms"] = 1e3 * measure_rtt(reps=20)
+    log("live serving (timed): " + json.dumps(out))
+    if not all(out[n]["all_valid"] and min(out[n]["k1_launches"], out[n]["k2_launches"],
+                                           out[n]["k3_launches"]) >= 1
+               for n in ("chunked", "pipelined")):
+        raise SystemExit("chip_smoke: the timed live runs: " + json.dumps(out))
+    return out
+
+
+def merge_cfg():
+    return default_cfg()[0].replace(**LOOP_CADENCE)
+
+
+def merge_scene():
+    """The merge phase's world, circuit and a segment's frames on the card
+    with its own odometry (noise integrated from the segment's start)."""
+    cfg = merge_cfg()
+    world = SyntheticWorld(cfg, n_landmarks=800, room=12.0, seed=1)
+    gt = np.asarray(world.circle_trajectory(MERGE_CIRCLE))
+
+    def segment(frames):
+        g = gt[list(frames)]
+        return ([torch.from_numpy(world.render(p)).to("cuda") for p in g],
+                world.odometry(g, noise=ODO_NOISE, seed=MERGE_NOISE_SEED))
+    return cfg, world, gt, segment
+
+
+def build_map(cfg, imgs, odo):
+    slam = SlamSystem(cfg, enable_loops=False,
+                      generator=torch.Generator(device="cuda").manual_seed(0))
+    feed_frames(slam, zip(imgs, odo))
+    return slam
+
+
+def live_frame_ids(slam):
+    """Frame ids (segment-relative) of the live keyframes in slot order: the
+    order of ``merge_maps``' compaction."""
+    valid = slam.ms.kf_valid.cpu().numpy()[: len(slam.kf_frame_ids)]
+    return [f for f, v in zip(slam.kf_frame_ids, valid) if v]
+
+
+def merge_draw_ok(run):
+    """The rule stated at JAX_MERGE_*."""
+    fa, fb = run["pair_frames"]
+    return (fa == fb and MERGE_B[0] <= fa <= MERGE_A[-1]
+            and run["align_inliers"] >= JAX_MERGE_ALIGN_MIN
+            and run["mps_fused"] >= JAX_MERGE_FUSED_MIN
+            and run["b_kf_err_max"] <= 1.5 * JAX_MERGE_B_ERR_MAX)
+
+
+def phase_merge():
+    """Two robots' maps merged at the bench widths for MERGE_DRAWS, every
+    check of the merged map, then its uses: save/reload, a Localizer, a
+    fleet localizer, merge_many and resume."""
+    dev = torch.device("cuda")
+    cfg, world, gt, segment = merge_scene()
+    seg_a, seg_b = segment(MERGE_A), segment(MERGE_B)
+    feed_frames(SlamSystem(cfg, enable_loops=False), zip(*(x[:12] for x in seg_a)))  # warm-up
+    K1.fast_nms.launches = K2.windowed_top2.launches = K3.point_reduction.launches = 0
+    slam_a, slam_b = build_map(cfg, *seg_a), build_map(cfg, *seg_b)
+    mapping = dict(k1_launches=K1.fast_nms.launches, k2_launches=K2.windowed_top2.launches,
+                   k3_launches=K3.point_reduction.launches,
+                   n_local_ba=slam_a.n_local_ba + slam_b.n_local_ba)
+    if (mapping["k1_launches"] != len(MERGE_A) + len(MERGE_B) or mapping["k2_launches"] < 1
+            or mapping["k3_launches"] != cfg.local_iter * mapping["n_local_ba"]):
+        raise SystemExit("chip_smoke: the merge phase's mapping launched " + json.dumps(mapping))
+    fa, fb = live_frame_ids(slam_a), live_frame_ids(slam_b)
+    a0 = gt[MERGE_A[0]]
+    want_b = map_gauge(np.concatenate([a0[None], gt[[MERGE_B[f] for f in fb]]]))[1:]
+
+    shapes = []
+    reduce_orig = ba.schur_reduce
+
+    def reduce_spy(Hpp, bp, Hpx, Hxx_inv, bx):
+        shapes.append((Hpx.shape[0], Hpx.shape[2]))
+        return reduce_orig(Hpp, bp, Hpx, Hxx_inv, bx)
+
+    runs, merged0 = [], None
+    for seed in MERGE_DRAWS:
+        shapes.clear()
+        K1.fast_nms.launches = K2.windowed_top2.launches = K3.point_reduction.launches = 0
+        ba.schur_reduce = reduce_spy
+        try:
+            with Counted(mapmerge, "run_global_ba_joint") as jg, \
+                    StageTimer(vocab_mod, "train_vocab") as tv, \
+                    StageTimer(mapmerge, "align_transform") as al, \
+                    StageTimer(mapmerge, "verify_loop") as vl, \
+                    StageTimer(mapmerge, "run_global_ba") as pg, \
+                    StageTimer(mapmerge, "run_global_ba_joint") as jt:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                merged, info = mapmerge.merge_maps(
+                    slam_a.ms, slam_b.ms, cfg,
+                    generator=torch.Generator(device=dev).manual_seed(seed))
+                torch.cuda.synchronize()
+                merge_s = time.perf_counter() - t0
+                parts = dict(vocab_ms=sum(tv.ms()), align_ms=sum(al.ms()), verify_ms=sum(vl.ms()),
+                             pose_graph_ms=sum(pg.ms()), joint_gba_ms=sum(jt.ms()))
+        finally:
+            ba.schur_reduce = reduce_orig
+        k1, k2, k3 = K1.fast_nms.launches, K2.windowed_top2.launches, K3.point_reduction.launches
+        ka, kb = info["pair"]
+        kp = merged.kf_pose.cpu().numpy()
+        b_err = np.linalg.norm(kp[len(fa):len(fa) + len(fb), :2] - want_b, axis=1)
+        run = dict(seed=seed, pair=[ka, kb], pair_frames=[MERGE_A[fa[ka]], MERGE_B[fb[kb]]],
+                   bow_score=info["bow_score"], align_inliers=info["align_inliers"],
+                   n_kp=info["n_kp"], n_mp_pairs=info["n_mp_pairs"], mps_fused=info["mps_fused"],
+                   seam_edge_inliers=info["seam_edge_inliers"], gba_chi2=info["gba_chi2"],
+                   joint_chi2=info["joint_chi2"], n_kf=int(merged.n_kf), n_kf_a=len(fa),
+                   n_kf_b=len(fb), b_kf_err_max=float(b_err.max()), merge_s=merge_s, **parts,
+                   consistent=table_consistency(merged), k1_launches=k1, k2_launches=k2,
+                   k3_launches=k3, k3_shapes=sorted(set(shapes)))
+        joint = joint_schur_check(jg.first, f"the merge's joint GBA (draw {seed})",
+                                  times=merged0 is None)
+        run["joint_schur_rel_err"] = joint["rel_err"]
+        runs.append(run)
+        log("merge: " + json.dumps(run))
+        if (k3 != cfg.gm_joint_ba_iters or set(shapes) != {GLOBAL_BA_SHAPE}
+                or not run["consistent"] or run["n_kf"] != len(fa) + len(fb)
+                or run["mps_fused"] < 1 or run["b_kf_err_max"] >= MERGE_B_ERR_MAX
+                or not bool(torch.isfinite(merged.kf_pose).all())):
+            raise SystemExit(f"chip_smoke: merge draw {seed} failed its checks")
+        if merged0 is None:
+            merged0, info0, joint0 = merged, info, joint
+    bad = [r["seed"] for r in runs if not merge_draw_ok(r)]
+    if bad:
+        raise SystemExit(f"chip_smoke: merge draws {bad} leave the JAX package's spread "
+                         f"(a seam of one view inside the overlap, as JAX's "
+                         f"{JAX_MERGE_PAIR_FRAMES}, align inliers >= {JAX_MERGE_ALIGN_MIN}, "
+                         f"fused >= {JAX_MERGE_FUSED_MIN}, B's keyframe error <= "
+                         f"{1.5 * JAX_MERGE_B_ERR_MAX})")
+
+    # the merged map saved and reloaded, then served
+    mdir = MAP_DIR.parent / "merged"
+    save_map(str(mdir), merged0, info0["vocab"])
+    ms, vocab, _ = load_map(str(mdir))
+    if not (all(torch.equal(a, b) for a, b in zip(ms, merged0))
+            and all(torch.equal(a, b) for a, b in zip(vocab, info0["vocab"]))):
+        raise SystemExit("chip_smoke: the merged map differs after save_map/load_map")
+    K1.fast_nms.launches = K2.windowed_top2.launches = 0
+    loc = Localizer(cfg, ms, vocab, generator=torch.Generator(device=dev).manual_seed(7))
+    halves = {}
+    for half, f in (("A", 8), ("B", 60)):         # one query a half; reloc may take 3 frames
+        hits = []
+        for j in range(3):
+            p = loc.process(torch.from_numpy(world.render(gt[f + j])).to(dev),
+                            np.asarray(gt[f + j], np.float32))
+            hits.append(p is not None)
+        halves[half] = hits
+    localizer = dict(halves=halves, k1_launches=K1.fast_nms.launches,
+                     k2_launches=K2.windowed_top2.launches)
+
+    # a two-robot fleet on the merged map, one robot a half
+    K = 8
+    extract_l, step_l = make_fleet_localizer(cfg, ms)
+    starts = (12, 64)
+    imgs = torch.stack([torch.stack([torch.from_numpy(world.render(gt[s + 1 + i]))
+                                     for i in range(K)]) for s in starts]).to(dev)
+    odos = np.stack([gt[s + 1: s + 1 + K] for s in starts]).astype(np.float32)
+    seeds = np.stack([np.concatenate([map_gauge(np.stack([a0, gt[s]]))[1],
+                                      [math.atan2(math.sin(gt[s, 2] - a0[2]),
+                                                  math.cos(gt[s, 2] - a0[2]))]])
+                      for s in starts]).astype(np.float32)
+    feats = extract_l(imgs)
+    K2.windowed_top2.launches = 0
+    poses, tracked = step_l(seeds, gt[list(starts)].astype(np.float32), feats, odos)
+    tracked = tracked.cpu().numpy()
+    fleet = dict(k2_launches=K2.windowed_top2.launches, chunk_steps=K,
+                 tracked_per_robot=tracked.sum(1).tolist())
+    log("merged map served: " + json.dumps(dict(localizer=localizer, fleet=fleet)))
+    if not (any(halves["A"]) and any(halves["B"]) and fleet["k2_launches"] == K
+            and min(fleet["tracked_per_robot"]) >= K // 2):
+        raise SystemExit("chip_smoke: the merged map's localizers failed: "
+                         + json.dumps(dict(localizer=localizer, fleet=fleet)))
+
+    # resume mapping on the merged map, in B's half
+    res = SlamSystem.resume(cfg, str(mdir), enable_loops=False,
+                            generator=torch.Generator(device=dev).manual_seed(0))
+    kf0 = res.n_keyframes()
+    feed_frames(res, ((torch.from_numpy(world.render(gt[f])).to(dev),
+                       np.asarray(gt[f], np.float32)) for f in range(60, 80)))
+    resume = dict(relocalized=not res._resume_pending, kf_before=kf0,
+                  kf_after=res.n_keyframes(), consistent=table_consistency(res.ms))
+    # merge_many: three robots on thirds of the circuit
+    maps = [build_map(cfg, *segment(s)).ms for s in MERGE_MANY_SEGMENTS]
+    many, infos = mapmerge.merge_many(maps, cfg)
+    many_out = dict(n_kf=int(many.n_kf), want_n_kf=sum(int(m.kf_valid.sum()) for m in maps),
+                    fused=[i["mps_fused"] for i in infos], consistent=table_consistency(many))
+    log("merged map resumed, merge_many: " + json.dumps(dict(resume=resume, merge_many=many_out)))
+    if not (resume["relocalized"] and resume["kf_after"] > kf0 and resume["consistent"]
+            and many_out["n_kf"] == many_out["want_n_kf"] and many_out["consistent"]
+            and min(many_out["fused"]) >= 1):
+        raise SystemExit("chip_smoke: resume or merge_many on the merged map failed")
+    return dict(mapping=mapping, runs=runs, joint=joint0, localizer=localizer, fleet=fleet,
+                resume=resume, merge_many=many_out)
+
+
 def timed(name, fn, *args):
     """Run one phase and print its seconds."""
     t0 = time.perf_counter()
@@ -1767,12 +2313,20 @@ def main():
     lp = timed("loop", phase_loop, loop_world)
     relief = timed("relief", phase_relief, loop_world)
     batch = timed("batch extraction", phase_batch_extract, extract, oc, world)
-    feeds, loc_feeds = timed("feeds (child process)", phase_feeds, MAP_DIR)
+    data = timed("dataset", phase_dataset, cfg, world)
+    child = timed("feeds, driver, live serving (child process)", phase_feeds, MAP_DIR)
+    feeds, loc_feeds = child["slam"], child["localization"]
     ms, vocab, _ = load_map(str(MAP_DIR))
     fleet = timed("fleet tracking", phase_fleet_tracking, cfg, oc)
     fleet_loc, real_b = timed("fleet localization", phase_fleet_localization, cfg, world, ms,
                               vocab)
     t2b = timed("k2 batched", phase_k2_batched, real_b)
+    live = timed("live serving (timed)", phase_live_timed, cfg, world)
+    merge = timed("merge", phase_merge)
+    slice6 = {name: {f"launches_{p}": v[f"k{i}_launches"] for p, v in (
+        ("dataset", data), ("live_chunked", live["chunked"]), ("live_pipelined", live["pipelined"]),
+        ("merge_mapping", merge["mapping"]), ("merge", merge["runs"][0]))}
+        for i, name in ((1, "k1"), (2, "k2"), (3, "k3"))}
     kernel = dict(
         name="fast_nms", route="cuda", source="se2lam_tpu_torch/csrc/fast_nms.cu",
         replaces="se2lam_tpu/frontend/pallas_fast.py:101", launches=k1_map,
@@ -1789,6 +2343,7 @@ def main():
         launches_batch_extraction=batch["k1_launches"],
         launches_feeds={f: v["k1"] for f, v in feeds["launches"].items()},
         launches_fleet_tracking={B: v["k1_launches"] for B, v in fleet.items()},
+        launches_merged_localizer=merge["localizer"]["k1_launches"], **slice6["k1"],
     )
     loc, glob = ts[LOCAL_BA_SHAPE], ts[GLOBAL_BA_SHAPE]
     schur_kernel = dict(
@@ -1803,6 +2358,8 @@ def main():
         launches_loop_joint_shape=lp["k3_joint"], launches_relief=relief["k3_launches"],
         joint_gba=lp["joint"], card=smi,
         launches_feeds={f: v["k3"] for f, v in feeds["launches"].items()},
+        merge_joint_gba=merge["joint"],
+        merge_joint_rel_err=[r["joint_schur_rel_err"] for r in merge["runs"]], **slice6["k3"],
     )
     match_kernel = dict(
         name="windowed_top2", route="cuda", source="se2lam_tpu_torch/csrc/windowed_top2.cu",
@@ -1816,7 +2373,9 @@ def main():
         launches_feeds={f: v["k2"] for f, v in feeds["launches"].items()},
         launches_localization_feeds={r["feed"]: r["k2_launches"] for r in loc_feeds},
         launches_fleet_localization_per_chunk=fleet_loc["k2_launches_per_chunk"],
-        batched=t2b,
+        batched=t2b, launches_merged_localizer=merge["localizer"]["k2_launches"],
+        launches_merged_fleet_per_chunk=merge["fleet"]["k2_launches"],
+        launches_live_localizer=child["live"]["localizer"]["k2_launches"], **slice6["k2"],
     )
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [kernel, schur_kernel, match_kernel]}), flush=True)

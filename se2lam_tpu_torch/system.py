@@ -187,6 +187,12 @@ class SlamSystem:
         # chunk pipeline: at most one chunk in flight beyond the resolving one
         self._chunk_pipe = deque()
         self._prefetched = None
+        # in-run observability, off until enable_viz: the image of the frame
+        # being processed and of the current reference keyframe
+        self._viz_dir: str | None = None
+        self._viz_every = 5
+        self._last_img = None
+        self._ref_img = None
 
     @classmethod
     def resume(cls, cfg: SystemConfig, map_path: str, enable_loops: bool = True, mesh=None,
@@ -248,6 +254,19 @@ class SlamSystem:
         self._reloc_localizer = None
         return True
 
+    def enable_viz(self, out_dir: str, every_n_kf: int = 5, log_ba: bool = True):
+        """Turn on the in-run observability: every ``every_n_kf`` keyframes,
+        write the composed frame-debug image (the FramePublish canvas,
+        src/FramePublish.cpp:152-203) and a map plot (the MapPublish role,
+        src/MapPublish.cpp:529-581, by keyframe instead of by time) into
+        ``out_dir``; with ``log_ba``, record each local BA's chi2 and counts
+        in ``ba_log`` (the printOptInfo analog, src/LocalMapper.cpp:374-440).
+        The images need matplotlib and PIL."""
+        os.makedirs(out_dir, exist_ok=True)
+        self._viz_dir = out_dir
+        self._viz_every = max(1, every_n_kf)
+        self.log_ba = log_ba
+
     # -- main synchronous step --
 
     def extract(self, img) -> OrbFeatures:
@@ -284,6 +303,8 @@ class SlamSystem:
         """Feed one (image, odometry) pair; returns the body pose (3,).
         ``gumbel``: this frame's RANSAC noise (ransac_trials, N), instead
         of drawing from the generator."""
+        if self._viz_dir is not None:
+            self._last_img = img
         return self.process_features(self.extract(img), odo, gumbel=gumbel)
 
     def process_features(self, feats: OrbFeatures, odo, gumbel=None) -> np.ndarray:
@@ -404,6 +425,31 @@ class SlamSystem:
                 "chi2_init": float(rec[0]), "chi2": float(rec[1]), "lambda": float(rec[2]),
                 "n_kf": int(rec[3]), "n_mp": int(rec[4]), "iters": int(rec[5]),
             })
+        if self._viz_dir is not None:
+            if self._last_img is not None and len(self.kf_frame_ids) % self._viz_every == 0:
+                self._emit_viz(feats, ts)
+            self._ref_img = self._last_img
+
+    def _emit_viz(self, feats: OrbFeatures, old_ts):
+        """Write the composed frame-debug image and the map plot for the
+        keyframe just inserted (host-side file IO; the reads are the
+        dumps' own)."""
+        from . import viz
+
+        fid = self.frame_id
+        loop_xy = loop_match = None
+        lc = self._loop_closer
+        if (lc is not None and lc.last_loop is not None and lc.last_loop_midx is not None
+                and lc.last_loop[1] == self._ref_kf_host):
+            loop_xy = self.ms.kf_xy[lc.last_loop[0]]
+            loop_match = lc.last_loop_midx
+        viz.compose_debug_image(
+            os.path.join(self._viz_dir, f"frame_{fid:05d}.png"), self._last_img, feats,
+            match_idx=old_ts.match_idx, ref_img=self._ref_img, ref_xy=old_ts.ref_feats.xy,
+            loop_xy=loop_xy, loop_match=loop_match,
+            label=f"f{fid} kf{len(self.kf_frame_ids)}")
+        viz.plot_map(os.path.join(self._viz_dir, f"map_{fid:05d}.png"), self.ms,
+                     title=f"map @ frame {fid}")
 
     # -- pipelined per-frame feed --
 
@@ -418,6 +464,8 @@ class SlamSystem:
         state with their own noise, so the results are ``process``'s.
         Lowering ``pipeline_depth`` mid-stream resolves several frames in
         one call and returns the newest; all are in ``trajectory``."""
+        if self._viz_dir is not None:
+            self._last_img = img
         return self.process_features_async(self.extract(img), odo)
 
     def process_features_async(self, feats: OrbFeatures, odo) -> np.ndarray | None:
@@ -454,11 +502,13 @@ class SlamSystem:
         noise = self._draw_noise()
         base = self._pipe[-1][3] if self._pipe else self.ts
         ts_new, copy = self._pipe_track(base, feats, odo, noise)
-        self._pipe.append([feats, odo, noise, ts_new, copy])
+        self._pipe.append([feats, odo, noise, ts_new, copy, self._last_img])
 
     def _pipe_resolve_one(self) -> np.ndarray:
-        feats, odo, _noise, ts_new, copy = self._pipe.popleft()
+        feats, odo, _noise, ts_new, copy, img = self._pipe.popleft()
         self.ts = ts_new
+        if self._viz_dir is not None:
+            self._last_img = img
         t0 = time.perf_counter()
         vals = self._read(copy)
         self.timings["track"] = time.perf_counter() - t0
@@ -543,14 +593,15 @@ class SlamSystem:
             feats_stack, odo_stack, noise, kk = self._chunk_inputs(imgs, odos, idx)
             if next_imgs is not None:
                 self.prefetch_chunk(next_imgs)
-            poses_out.extend(self._run_chunk_segments(feats_stack, odo_stack, noise, kk))
+            poses_out.extend(self._run_chunk_segments(feats_stack, odo_stack, noise, kk,
+                                                      imgs[idx:]))
         return np.asarray(poses_out, np.float32).reshape(-1, 3)
 
-    def _run_chunk_segments(self, feats_stack, odo_stack, noise, kk, first_seg=None):
-        """The segment loop of both chunked feeds. ``first_seg``: segment
-        0's speculative pass dispatched earlier, (final state, ChunkSteps,
-        decision copy); valid because a resolve that changed the state
-        replayed it."""
+    def _run_chunk_segments(self, feats_stack, odo_stack, noise, kk, imgs, first_seg=None):
+        """The segment loop of both chunked feeds over the frames ``imgs``.
+        ``first_seg``: segment 0's speculative pass dispatched earlier,
+        (final state, ChunkSteps, decision copy); valid because a resolve
+        that changed the state replayed it."""
         cfg = self.cfg
         poses_out: list[np.ndarray] = []
         i = 0
@@ -576,6 +627,8 @@ class SlamSystem:
                 self._frame_anchors.append(
                     (self.frame_id, self._ref_kf_host, _np_se2_minus(pose, self._ref_pose_host)))
                 if j == fire:
+                    if self._viz_dir is not None:
+                        self._last_img = imgs[fire]
                     feats_j = tracking.chunk_frame(feats_stack, fire)
                     self.ts = tracking.state_at_step(self.ts, feats_j, steps, fire)
                     self._keyframe_decision(n_kf, n_mp, feats_j, odo_stack[fire])
@@ -625,13 +678,13 @@ class SlamSystem:
 
     def _chunk_submit(self, imgs, odos):
         feats_stack, odo_stack, noise, kk = self._chunk_inputs(imgs, odos, 0)
-        e = dict(feats=feats_stack, odo=odo_stack, noise=noise, kk=kk)
+        e = dict(feats=feats_stack, odo=odo_stack, noise=noise, kk=kk, imgs=imgs)
         self._chunk_track(e, self._chunk_pipe[-1]["ts_f"] if self._chunk_pipe else self.ts)
         self._chunk_pipe.append(e)
 
     def _chunk_resolve_one(self) -> np.ndarray:
         e = self._chunk_pipe.popleft()
-        poses_out = self._run_chunk_segments(e["feats"], e["odo"], e["noise"], e["kk"],
+        poses_out = self._run_chunk_segments(e["feats"], e["odo"], e["noise"], e["kk"], e["imgs"],
                                              first_seg=(e["ts_f"], e["steps"], e["copy"]))
         if self._chunk_pipe and self.ts is not e["ts_f"]:
             # the state changed: track the chunks in flight again from it

@@ -518,3 +518,81 @@ def test_loop_stage_on_card(card, small_map):
     for name in ("fired", "cand", "k", "renewal_gba", "cooldown"):
         assert outs["cuda"][name] == outs["cpu"][name], name
     assert outs["cuda"]["k"] == k
+
+
+@pytest.mark.cuda
+def test_stage_timer_synchronises_the_card(card, monkeypatch):
+    """``StageTimer(block=True)`` waits for the devices of a timed call's
+    output before it stops the clock, and only then; ``measure_rtt`` reads
+    a scalar back from the card."""
+    from se2lam_tpu_torch.utils import timing
+
+    synced = []
+    orig = torch.cuda.synchronize
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda d=None: (synced.append(d), orig(d)))
+    a = torch.ones((512, 512), device=card)
+    timing.StageTimer(block=False).timed("mm", torch.mm, a, a)
+    assert synced == []
+    st = timing.StageTimer(block=True)
+    out = st.timed("mm", lambda x: {"y": [x @ x], "z": 1}, a)
+    assert [torch.device(d) for d in synced] == [out["y"][0].device]
+    assert st.samples["mm"][0] > 0.0
+    assert 0.0 < timing.measure_rtt(reps=3) < 1.0
+
+
+def _tiny_merge_cfg():
+    """The configuration of the JAX package's tests/test_mapmerge.py
+    (160x120, 128 features, 2 levels), built from the port's classes."""
+    from se2lam_tpu_torch.config import Capacity, SystemConfig
+    from se2lam_tpu_torch.frontend.orb import OrbConfig
+
+    Tcb = np.array([[0, -1, 0, 0], [0, 0, -1, 0], [1, 0, 0, 0], [0, 0, 0, 1]], np.float64)
+    oc = OrbConfig(height=120, width=160, n_features=128, scale_factor=1.2, n_levels=2)
+    return SystemConfig(
+        width=160, height=120, fx=130.0, fy=130.0, cx=80.0, cy=60.0,
+        Tbc=tuple(np.linalg.inv(Tcb).ravel()), upper_depth=30.0, lower_depth=0.2,
+        max_feature_num=128, max_level=2, min_frames_between_kf=2, max_frames_between_kf=5,
+        local_iter=4, gm_vcl_num_min_match_kp=12, gm_vcl_num_min_match_mp=5,
+        cap=Capacity(n_features=oc.n_slots, max_kfs=64, max_mps=2048, local_kfs=6,
+                     local_ref_kfs=6, local_mps=256, ransac_trials=32))
+
+
+@pytest.mark.cuda
+def test_merge_on_card_runs_the_joint_gba_through_the_kernel(card):
+    """``merge_maps`` on the card, of two half maps built on the CPU: the
+    joint GBA launches the Schur kernel once an LM step at (max_kfs,
+    max_mps), and the merged map holds both maps' keyframes."""
+    from se2lam_tpu_torch.mapmerge import merge_maps
+    from se2lam_tpu_torch.system import SlamSystem
+
+    torch.set_num_threads(4)
+    cfg = _tiny_merge_cfg()
+    world = SyntheticWorld(cfg, n_landmarks=400, room=10.0, seed=2)
+    gt = np.asarray(world.circle_trajectory(80))
+    maps = []
+    for frames in (range(0, 48), range(40, 80)):
+        slam = SlamSystem(cfg, enable_loops=False, device="cpu",
+                          generator=torch.Generator().manual_seed(0))
+        for i in frames:
+            slam.process(world.render(gt[i]), np.asarray(gt[i], np.float32))
+        maps.append(slam.ms)
+    seen = []
+    orig = ba.schur_reduce
+
+    def spy(Hpp, bp, Hpx, Hxx_inv, bx):
+        seen.append((Hpx.shape[0], Hpx.shape[2]))
+        return orig(Hpp, bp, Hpx, Hxx_inv, bx)
+
+    before = K3.point_reduction.launches
+    ba.schur_reduce = spy
+    try:
+        merged, info = merge_maps(maps[0], maps[1], cfg,
+                                  generator=torch.Generator(device=card).manual_seed(42))
+        torch.cuda.synchronize()
+    finally:
+        ba.schur_reduce = orig
+    assert merged.kf_pose.device.type == "cuda"
+    assert K3.point_reduction.launches == before + cfg.gm_joint_ba_iters
+    assert set(seen) == {(cfg.cap.max_kfs, cfg.cap.max_mps)}
+    assert int(merged.n_kf) == sum(int(m.kf_valid.sum()) for m in maps)
+    assert info["mps_fused"] >= 1 and bool(torch.isfinite(merged.kf_pose).all())

@@ -31,6 +31,16 @@ import se2lam_tpu_torch.solver.posegraph
 import se2lam_tpu_torch.utils, se2lam_tpu_torch.utils.chunking, se2lam_tpu_torch.utils.prefetch
 import se2lam_tpu_torch.parallel, se2lam_tpu_torch.parallel.fleet
 import se2lam_tpu_torch.parallel.fleet_localize
+import se2lam_tpu_torch.mapmerge, se2lam_tpu_torch.viz, se2lam_tpu_torch.utils.timing
+import se2lam_tpu_torch.io.dataset, se2lam_tpu_torch.io.native_loader
+import se2lam_tpu_torch.io.liveserver
+import se2lam_tpu_torch.drivers, se2lam_tpu_torch.drivers.run_dataset
+import se2lam_tpu_torch.drivers.run_localization, se2lam_tpu_torch.drivers.merge_maps
+import se2lam_tpu_torch.drivers.make_dataset, se2lam_tpu_torch.drivers.serve_live
+import se2lam_tpu_torch.drivers.feed_live, se2lam_tpu_torch.drivers.fleet_demo
+import se2lam_tpu_torch.drivers.evaluate_ate
+for name in se2lam_tpu_torch._LAZY:
+    getattr(se2lam_tpu_torch, name)
 new = set(sys.modules) - before
 bad = sorted(m for m in new
              if m.split(".")[0] in ("jax", "jaxlib")
@@ -48,6 +58,30 @@ def test_import_loads_no_jax_and_no_jax_package():
     )
     assert out.returncode == 0, out.stderr
     assert "BAD []" in out.stdout, out.stdout
+
+
+_LAZY_PROBE = """
+import sys
+import se2lam_tpu_torch
+cheap = not any(m in sys.modules for m in ("se2lam_tpu_torch.system", "se2lam_tpu_torch.mapmerge",
+                                           "se2lam_tpu_torch.frontend.orb"))
+from se2lam_tpu_torch.mapmerge import merge_maps
+from se2lam_tpu_torch.system import SlamSystem
+print("LAZY", cheap, se2lam_tpu_torch.SlamSystem is SlamSystem,
+      se2lam_tpu_torch.merge_maps is merge_maps, sorted(se2lam_tpu_torch._LAZY) == sorted(
+          set(se2lam_tpu_torch.__all__) - {"resolve_device"}))
+"""
+
+
+def test_package_root_exports_lazily():
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run([sys.executable, "-c", _LAZY_PROBE], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "LAZY True True True True" in out.stdout, out.stdout
+    import se2lam_tpu_torch
+    with pytest.raises(AttributeError):
+        se2lam_tpu_torch.no_such_name
 
 
 def _entry():
@@ -135,14 +169,49 @@ def _fleet_localizer():
     make_fleet_localizer(default_cfg()[0], _map_and_vocab()[0])
 
 
+def _merge_maps():
+    from se2lam_tpu_torch.entry import default_cfg
+    from se2lam_tpu_torch.mapmerge import merge_maps
+    ms = _map_and_vocab()[0]
+    merge_maps(ms, ms, default_cfg()[0])
+
+
+def _merge_many():
+    from se2lam_tpu_torch.entry import default_cfg
+    from se2lam_tpu_torch.mapmerge import merge_many
+    ms = _map_and_vocab()[0]
+    merge_many([ms, ms], default_cfg()[0])
+
+
+def _measure_rtt():
+    from se2lam_tpu_torch.utils.timing import measure_rtt
+    measure_rtt()
+
+
+def _run_dataset_driver():
+    import tempfile
+
+    from se2lam_tpu_torch.drivers import run_dataset
+    with tempfile.TemporaryDirectory() as d:
+        run_dataset.main(["--synthetic", "--frames", "1", "--out", d])
+
+
+def _serve_live_driver():
+    from se2lam_tpu_torch.drivers.serve_live import make_system
+    from se2lam_tpu_torch.entry import default_cfg
+    make_system(default_cfg()[0])
+
+
 @pytest.mark.parametrize("make", [_entry, _extractor, _camera, _convert, _empty_map,
                                   _slam_system, _default_slam_system, _loop_closer,
                                   _localizer, _load_map, _batch_extractor, _fleet_tracker,
-                                  _fleet_localizer],
+                                  _fleet_localizer, _merge_maps, _merge_many, _measure_rtt,
+                                  _run_dataset_driver, _serve_live_driver],
                          ids=["entry", "extractor", "camera", "convert", "empty_map",
                               "slam_system", "default_slam_system", "loop_closer",
                               "localizer", "load_map", "batch_extractor", "fleet_tracker",
-                              "fleet_localizer"])
+                              "fleet_localizer", "merge_maps", "merge_many", "measure_rtt",
+                              "run_dataset_driver", "serve_live_driver"])
 def test_device_none_means_cuda_and_raises_without_it(make):
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: device=None runs there")
