@@ -61,7 +61,7 @@ a nonzero exit if it fails:
    points), the keyframe cadence (2-8 frames) and untouched loop gates of
    the JAX package's reference-gates test, on that test's scene (a 72-frame
    lap plus 24 revisit frames of ``SyntheticWorld(n_landmarks=1200,
-   room=10.0, seed=4)``), for 3 RANSAC draws: each closes a loop, its
+   room=10.0, seed=4)``), for 2 RANSAC draws: each closes a loop, its
    corrected trajectory beats raw odometry, its keyframe count and ATE lie
    inside the JAX package's spread; every launch of the three kernels is
    counted, the Schur kernel's at the local-BA and the joint-GBA shapes
@@ -101,9 +101,12 @@ a nonzero exit if it fails:
    launches a step, ms per robot-frame and peak memory;
 16. fleet localization: B = 4 robots (starts 10, 12, 14, 16, odometry
    noise seeds 20-23) x 4 chunks of 8 frames on the saved map, one
-   ``make_fleet_localizer`` step a chunk: per robot the tracked flags and
-   poses (within 1e-3) of a single-robot ``Localizer.process_chunk`` run,
-   exactly one K2 launch a chunk step for the whole fleet, robot-frames/s;
+   ``make_fleet_localizer`` step a chunk: every robot's poses and tracked
+   flags bitwise those of the same robot in a fleet of one; the fleet of
+   one against ``Localizer.process_chunk`` chunk by chunk, both started
+   from the same carried pose and odometry (tracked flags equal, poses
+   within 1e-3), the old whole-run difference printed beside it; exactly
+   one K2 launch a chunk step for the whole fleet, robot-frames/s;
 17. batched K2 on the fleet's first real step (B = 4, N1 = 8192, N2 =
    1000): one batched launch bitwise equal to the 4 single launches and
    to the batched plain version, all-ties inputs at B = 3, times in a
@@ -144,6 +147,31 @@ a nonzero exit if it fails:
    its parts (vocabulary, candidate verification, pose graph, joint GBA)
    by CUDA events.
 
+21. mesh solvers: ``entry.dryrun_multichip`` on a mesh of 4 blocks of the
+   card (``make_mesh(4, device="cuda")``): the map-block partitioned local
+   BA (K=64, M=2048, P=8) against the single-device solver, the
+   edge-sharded pose graph (K=256), Hamming and BoW scoring over a split
+   bank, fleet tracking over the blocks, the matrix-free PCG joint BA at
+   64/2048 against the single optimum and at bank scale (K=2048,
+   M=65536, P=6) against ground truth, and the JAX package's 320x240
+   revisit session on the mesh, with the JAX asserts; each solve's
+   seconds; K3's launches and shapes (one launch per block per LM step at
+   (64, 512)), each block's first launch against its plain version in f64
+   (in the deterministic child, after the runtime);
+22. the mesh session: the loop phase's scene at the bench widths and the
+   default Capacity, one draw, ``SlamSystem(cfg, mesh=...)`` on the 4
+   blocks: the BoW bank split over them, the pose graph edge-sharded, the
+   joint GBA partitioned (K3 at (256, 2048) on each block): the loop
+   phase's JAX spread, a loop closed, every kernel's launches (K3: the
+   local BAs' plus 4 a joint-GBA step), each block of the first joint GBA
+   on its real damped system in f64 (block 0 timed beside the einsum and
+   its bound), frames/s beside the single-device loop phase's.
+In the child of phases 13-14 also the runtime: ``parallel.runtime`` over
+NCCL at world size 1 holding the 4 blocks, whose psum and distributed pose
+graph equal the in-process mesh's bitwise (deterministic mode). Phases 15
+and 16 also run their fleets cut over the 4 blocks (``shard_fleet``),
+each robot bitwise its fleet without a mesh.
+
 Every phase prints its seconds, and the run its total.
 
 The Schur kernel is held, on every system, to its plain version evaluated
@@ -172,7 +200,7 @@ from se2lam_tpu_torch import localmap, loopclose, mapmerge, tracking
 from se2lam_tpu_torch import vocab as vocab_mod
 from se2lam_tpu_torch.config import SystemConfig
 from se2lam_tpu_torch.drivers import run_dataset as run_dataset_driver
-from se2lam_tpu_torch.entry import default_cfg, entry
+from se2lam_tpu_torch.entry import default_cfg, dryrun_multichip, entry, session_cfg
 from se2lam_tpu_torch.frontend import fast_nms as K1
 from se2lam_tpu_torch.frontend import windowed_match as K2
 from se2lam_tpu_torch.frontend.orb import OrbExtractor
@@ -185,7 +213,8 @@ from se2lam_tpu_torch.kernels import build_all, load_library, ptxas_summary
 from se2lam_tpu_torch.kernels.samples import k2_inputs, k2_robot_inputs
 from se2lam_tpu_torch.localizer import Localizer
 from se2lam_tpu_torch.mapstate import MapState
-from se2lam_tpu_torch.parallel import make_fleet_localizer, make_fleet_tracker
+from se2lam_tpu_torch.parallel import make_fleet_localizer, make_fleet_tracker, make_mesh
+from se2lam_tpu_torch.parallel.dist_loop import ShardedRows
 from se2lam_tpu_torch.solver import ba
 from se2lam_tpu_torch.solver import schur as K3
 from se2lam_tpu_torch.system import SlamSystem
@@ -248,7 +277,10 @@ F1_LEVELS = (9, 10)     # past the kernel's 8-entry level table: two launches a 
 # tests/test_loop_reference_gates.py, its keyframe cadence, the bench widths
 LOOP_CADENCE = dict(min_frames_between_kf=2, max_frames_between_kf=8)
 LOOP_NOISE = (0.004, 0.002, 0.002)   # odometry noise per step, seed 3
-LOOP_DRAWS = 3
+# 2 draws (3 before the mesh phases came): the mesh session of phase 22 runs
+# the scene a third time, held to the same spread, and the script keeps near
+# half of its time limit
+LOOP_DRAWS = 2
 # The JAX package's spread on these frames (examples/loop_draws.py, CPU, 4
 # draws): 28-29 keyframes, 2 loops closed in every draw, live ATE
 # 0.02551-0.03153 m, corrected ATE 0.01315-0.02227 m, raw odometry's
@@ -264,6 +296,11 @@ JAX_LOOP_ATE_CORRECTED_MAX = 0.022268728356580062
 # error (printed beside it, with the ratio) wanders with the run's inputs
 # as much, so it sets no bound
 JOINT_SCHUR_REL_MAX = 2e-6
+# the Schur kernel on a block of the distributed local BA's real damped
+# system, against the sum of its products' magnitudes (block_schur_check):
+# two f32 roundings; the f32 einsum pair reads 1.3e-9 to 4.1e-9 of it on
+# the dry run's blocks (CPU)
+SCHUR_ABS_REL_MAX = 1.2e-7
 # capacity relief on the same scene: bank sizes at which both reliefs run
 # (examples/loop_draws.py, CPU)
 RELIEF_KFS, RELIEF_MPS, RELIEF_FRAMES = 16, 2048, 72
@@ -280,6 +317,9 @@ FEED_LOC_POSE_TOL = 1e-3
 FLEET_SIZES, FLEET_FRAMES = (1, 2, 4, 8), 16
 FLEET_POSE_TOL = 1e-5          # the JAX package's tests/test_fleet.py
 FLEET_LOC_STARTS, FLEET_LOC_K, FLEET_LOC_CHUNKS = (10, 12, 14, 16), 8, 4
+# the mesh phases: 4 blocks on the one card (make_mesh(4, device="cuda")),
+# as the JAX package's mesh runs on forced host devices
+MESH_BLOCKS = 4
 FLEET_LOC_NOISE_SEED = 20      # robot r's odometry noise seed is 20 + r
 # slice 6: the DatasetRoom written from the mapping phase's frames, the
 # driver's output, and the live server
@@ -1138,18 +1178,23 @@ def loop_scene(world):
     return default_cfg()[0].replace(**LOOP_CADENCE), gt, odo, imgs
 
 
-def run_loop(cfg, imgs, odo, gt, seed):
+def run_loop(cfg, imgs, odo, gt, seed, mesh=None):
     """One pass of SlamSystem(cfg) with its defaults over the loop scene;
-    tracking's RANSAC draws seeded ``seed``, the loop closer's 42 + seed."""
-    slam = SlamSystem(cfg, generator=torch.Generator(device="cuda").manual_seed(seed))
+    tracking's RANSAC draws seeded ``seed``, the loop closer's 42 + seed.
+    With ``mesh`` the global stage runs distributed and staged (its
+    stage, pose-graph and joint-GBA timers then time ``start_async``'s
+    stages through ``verify_and_build_batch``, ``run_global_ba_dist`` and
+    ``run_global_ba_joint_dist``)."""
+    slam = SlamSystem(cfg, mesh=mesh, generator=torch.Generator(device="cuda").manual_seed(seed))
     lc = slam._loop_closer
     lc.generator = torch.Generator(device="cuda").manual_seed(42 + seed)
     slam.log_ba = True
+    sfx = "" if mesh is None else "_dist"
     with StageTimer(loopclose, "loop_stage") as st, \
             StageTimer(loopclose, "verify_and_build_batch") as vb, \
             StageTimer(loopclose, "solve_pose_only") as po, \
-            StageTimer(loopclose, "run_global_ba") as pg, \
-            StageTimer(loopclose, "run_global_ba_joint") as jg, \
+            StageTimer(loopclose, "run_global_ba" + sfx) as pg, \
+            StageTimer(loopclose, "run_global_ba_joint" + sfx) as jg, \
             StageTimer(vocab_mod, "train_vocab") as tv:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1174,13 +1219,18 @@ def run_loop(cfg, imgs, odo, gt, seed):
         ate=ate_se2(est[:, :2], gt[:, :2])[0],
         ate_corrected=ate_se2(cor[:, 1:3], gt[:, :2])[0],
         ate_odometry=ate_se2(odo[:, :2], gt[:, :2])[0],
-        loop_stage_ms_per_kf=float(np.median(stage_ms)), loop_stage_ms_max=max(stage_ms),
-        verify_build_ms_per_kf=float(np.median(verify_ms)),
-        pose_only_ms_per_call=float(np.median(pose_only_ms)), pose_only_calls=len(pose_only_ms),
+        loop_stage_ms_per_kf=median(stage_ms), loop_stage_ms_max=max(stage_ms, default=None),
+        verify_build_ms_per_kf=median(verify_ms),
+        pose_only_ms_per_call=median(pose_only_ms), pose_only_calls=len(pose_only_ms),
         pose_graph_ms=pg_ms, joint_gba_ms=joint_ms,
         frames_per_s=len(imgs) / loop_s, loop_s=loop_s,
         host_reads_per_frame=slam.host_reads / len(imgs),
     )
+
+
+def median(xs):
+    """The median of a list of times, None for an empty one."""
+    return float(np.median(xs)) if xs else None
 
 
 def loop_draw_ok(run):
@@ -1246,10 +1296,7 @@ def phase_loop(world):
 
 def joint_schur_check(first_call, what, times=True):
     """The Schur kernel on the real damped system of a joint GBA, given the
-    arguments of its ``run_global_ba_joint`` call: within
-    JOINT_SCHUR_REL_MAX of max|S| from the plain version in f64, beside the
-    f32 einsum pair's error on the same inputs (information), and, with
-    ``times``, its times there."""
+    arguments of its ``run_global_ba_joint`` call (``real_schur_check``)."""
     dev = torch.device("cuda")
     (ms_in, cfg_in), kw = first_call[0][:2], first_call[1]
     c = tracking.constants(cfg_in, dev)
@@ -1257,6 +1304,17 @@ def joint_schur_check(first_call, what, times=True):
     ba_cfg = loopclose._joint_ba_cfg(ms_in, cfg_in, kw.get("iters", cfg_in.gm_joint_ba_iters))
     _, _, Hpx, Hxx_inv, _, _ = ba.damped_system(
         prob, c["cam"], c["Tcb"], ba_cfg, torch.tensor(ba_cfg.lm_init_lambda, device=dev))
+    joint = real_schur_check(Hpx, Hxx_inv, what, times)
+    joint.update(valid_points=int(prob.point_valid.sum()), valid_kfs=int(prob.pose_valid.sum()),
+                 valid_obs=int(prob.obs_valid.sum()))
+    return joint
+
+
+def real_schur_check(Hpx, Hxx_inv, what, times=True):
+    """The Schur kernel on a real damped system: within JOINT_SCHUR_REL_MAX
+    of max|S| from the plain version in f64, beside the f32 einsum pair's
+    error on the same inputs (information), and, with ``times``, its times
+    there."""
     want = K3.point_reduction_plain(Hpx.double(), Hxx_inv.double())
     scale = float(want.abs().max())
     got = K3.point_reduction(Hpx, Hxx_inv)
@@ -1264,16 +1322,16 @@ def joint_schur_check(first_call, what, times=True):
     torch.cuda.synchronize()
     k3_err = float((got.double() - want).abs().max())
     einsum_err = float((plain32.double() - want).abs().max())
-    rel, einsum_rel = k3_err / scale, einsum_err / scale
+    # a block that holds no live point (a bank's tail) reduces to exact zeros
+    rel, einsum_rel = ((k3_err / scale, einsum_err / scale) if scale > 0
+                       else (math.inf if k3_err else 0.0, math.inf if einsum_err else 0.0))
     if not (math.isfinite(rel) and rel <= JOINT_SCHUR_REL_MAX):
         raise SystemExit(f"chip_smoke: Schur kernel on {what} {tuple(Hpx.shape)}: relative "
                          f"error {rel} > {JOINT_SCHUR_REL_MAX} (f32 einsum {einsum_rel})")
     joint = dict(
         shape_KM=(Hpx.shape[0], Hpx.shape[2]), max_abs_err=k3_err, rel_err=rel,
         rel_bound=JOINT_SCHUR_REL_MAX, einsum_f32_rel_err=einsum_rel,
-        rel_err_over_einsum=rel / max(einsum_rel, 1e-30),
-        valid_points=int(prob.point_valid.sum()), valid_kfs=int(prob.pose_valid.sum()),
-        valid_obs=int(prob.obs_valid.sum()))
+        rel_err_over_einsum=rel / max(einsum_rel, 1e-30), max_abs_S=scale)
     if times:
         bound, by = schur_bound(Hpx.shape[0], Hpx.shape[2])
         fns = dict(kernel=lambda: K3.point_reduction(Hpx, Hxx_inv),
@@ -1601,13 +1659,19 @@ def feeds_main(out):
     loc_feeds = timed("feeds localization", phase_feeds_localization, cfg, world, ms, vocab)
     driver = timed("dataset driver", phase_dataset_driver)
     live = timed("live serving (deterministic)", phase_live_compare, cfg, world, ms, vocab)
+    mesh = make_mesh(MESH_BLOCKS, device="cuda")
+    rt = timed("runtime", phase_runtime, mesh)
+    with deterministic():
+        solvers = timed("mesh solvers", phase_mesh_solvers, mesh)
     Path(out).write_text(json.dumps(dict(slam=feeds, localization=loc_feeds, driver=driver,
-                                         live=live)))
+                                         live=live, runtime=rt, mesh_solvers=solvers)))
     return 0
 
 
-def phase_fleet_tracking(cfg, oc):
-    """B robots, robot b on its own world, one fleet step a frame."""
+def phase_fleet_tracking(cfg, oc, mesh=None):
+    """B robots, robot b on its own world, one fleet step a frame; with
+    ``mesh``, B = MESH_BLOCKS robots cut over its blocks beside the same
+    fleet without one (bitwise)."""
     dev = torch.device("cuda")
     Bmax = max(FLEET_SIZES)
     imgs, odos = [], []
@@ -1621,9 +1685,11 @@ def phase_fleet_tracking(cfg, oc):
     noise = torch.stack([torch.stack([
         tracking.draw_track_noise(g, cfg) for _ in range(1, FLEET_FRAMES)])
         for g in (torch.Generator(device=dev).manual_seed(b) for b in range(Bmax))])
-    init_fn, step_fn, extract_fn = make_fleet_tracker(cfg, oc)
+    fns = make_fleet_tracker(cfg, oc)
+    mesh_fns = make_fleet_tracker(cfg, oc, mesh=mesh) if mesh is not None else None
 
-    def run(robots):
+    def run(robots, on_mesh=False):
+        init_fn, step_fn, extract_fn = mesh_fns if on_mesh else fns
         rb = list(robots)
         ts = init_fn(extract_fn(imgs[rb, 0]), odos[rb, 0], odos[rb, 0])
         out = []
@@ -1632,12 +1698,16 @@ def phase_fleet_tracking(cfg, oc):
         t0 = time.perf_counter()
         for t in range(1, FLEET_FRAMES):
             ts, res = step_fn(ts, imgs[rb, t], odos[rb, t], noise[rb, t - 1])
+            if on_mesh:
+                res, ts_h = res.gather(), ts.gather()
+            else:
+                ts_h = ts
             # the caller's one read a step: every robot's decisions, pose
             # and feature matches (integers, exact in f32)
             out.append(torch.cat([
-                torch.stack([res.need_kf, res.n_matched, res.n_tracked_old, ts.n_good_prl],
+                torch.stack([res.need_kf, res.n_matched, res.n_tracked_old, ts_h.n_good_prl],
                             1).to(torch.float32),
-                res.pose, ts.match_idx.to(torch.float32)], 1).cpu().numpy())
+                res.pose, ts_h.match_idx.to(torch.float32)], 1).cpu().numpy())
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         return np.stack(out, 1), dt, K1.fast_nms.launches   # (B, T-1, 7 + N)
@@ -1670,6 +1740,15 @@ def phase_fleet_tracking(cfg, oc):
                 or not np.isfinite(got).all() or got[:, :, 1].max() < 50):
             raise SystemExit(f"chip_smoke: fleet tracking at B = {B}: " + json.dumps(
                 dict(out[B], want_k1=want_k1)))
+    if mesh is not None:
+        Bm = mesh.size
+        got, _, k1 = run(range(Bm), on_mesh=True)
+        ref = run(range(Bm))[0]
+        out["mesh"] = dict(B=Bm, blocks=mesh.size, k1_launches=k1,
+                           bitwise_vs_no_mesh=bool(np.array_equal(got, ref)))
+        if not out["mesh"]["bitwise_vs_no_mesh"]:
+            raise SystemExit("chip_smoke: fleet tracking on the mesh differs from the fleet "
+                             "without one: " + json.dumps(out["mesh"]))
     log("fleet tracking: " + json.dumps(out))
     return out
 
@@ -1682,9 +1761,32 @@ def se2_minus_np(p, ref):
                      math.remainder(p[2] - ref[2], 2 * math.pi)])
 
 
-def phase_fleet_localization(cfg, world, ms, vocab):
+def phase_fleet_localization(cfg, world, ms, vocab, mesh=None):
+    """``fleet_localization_run`` and its checks (``fleet_loc_ok``)."""
+    run, real = fleet_localization_run(cfg, world, ms, vocab, mesh)
+    if not fleet_loc_ok(run):
+        raise SystemExit("chip_smoke: fleet localization failed its checks")
+    return run, real
+
+
+def fleet_loc_ok(run):
+    """Phase 16's checks of a ``fleet_localization_run``."""
+    return (run["fleet_bitwise_fleet_of_one"] and run["flags_equal_chunkwise"]
+            and run["pose_max_diff_chunkwise"] <= FEED_LOC_POSE_TOL
+            and all(x == run["k"] for x in run["k2_launches_per_chunk"])
+            and run["tracked"] >= 0.95 * run["robot_frames"] and run["mesh_bitwise"] is not False)
+
+
+def fleet_localization_run(cfg, world, ms, vocab, mesh=None):
     """B robots x chunks of k frames on the saved map, one fleet step a
-    chunk, beside each robot's single Localizer.process_chunk run. Returns
+    chunk. Checks (``fleet_loc_ok``): (i) every robot's poses and tracked flags at B bitwise
+    those of the same robot in a fleet of one; (ii) the fleet of one held
+    against ``Localizer.process_chunk`` chunk by chunk, both runs of a
+    chunk started from the same carried pose and odometry, within
+    FEED_LOC_POSE_TOL (the JAX package's comparison of its feeds,
+    ``tests/test_localizer.py``); the old whole-run difference against one
+    continuous ``process_chunk`` run is printed beside them. With ``mesh``
+    the fleet's robots are cut over its blocks (``shard_fleet``). Returns
     the run and the arguments of the fleet's first batched K2 launch."""
     dev = torch.device("cuda")
     B, k, n_chunks = len(FLEET_LOC_STARTS), FLEET_LOC_K, FLEET_LOC_CHUNKS
@@ -1696,25 +1798,31 @@ def phase_fleet_localization(cfg, world, ms, vocab):
     pose0 = np.stack([se2_minus_np(gt[s], gt[0]) for s in FLEET_LOC_STARTS]).astype(np.float32)
     last0 = np.stack([odos[r][s] for r, s in enumerate(FLEET_LOC_STARTS)])
 
-    def chunk(c):
-        fr = [[s + c * k + j for j in range(k)] for s in FLEET_LOC_STARTS]
+    def chunk(c, robots):
+        fr = [[FLEET_LOC_STARTS[r] + c * k + j for j in range(k)] for r in robots]
         im = torch.stack([torch.stack([frame_img[i] for i in row]) for row in fr])
-        od = np.stack([odos[r][row] for r, row in enumerate(fr)])
+        od = np.stack([odos[r][row] for r, row in zip(robots, fr)])
         return im, od
 
     extract_fn, step_fn = make_fleet_localizer(cfg, ms)
+    if mesh is not None:
+        m_extract, m_step = make_fleet_localizer(cfg, ms, mesh=mesh)
 
-    def run_fleet():
-        pose_b, last_b = torch.from_numpy(pose0).to(dev), torch.from_numpy(last0).to(dev)
-        poses, tracked, k2 = [], [], []
+    def run_fleet(robots, on_mesh=False):
+        rb = list(robots)
+        pose_b, last_b = torch.from_numpy(pose0[rb]).to(dev), torch.from_numpy(last0[rb]).to(dev)
+        poses, tracked, k2, carries = [], [], [], []
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for c in range(n_chunks):
-            im, od = chunk(c)
+            carries.append((pose_b.cpu().numpy(), last_b.cpu().numpy()))
+            im, od = chunk(c, rb)
             od = torch.from_numpy(od).to(dev)
-            feats = extract_fn(im)
             K2.windowed_top2.launches = 0
-            p, t = step_fn(pose_b, last_b, feats, od)
+            if on_mesh:
+                p, t = (x.gather() for x in m_step(pose_b, last_b, m_extract(im), od))
+            else:
+                p, t = step_fn(pose_b, last_b, extract_fn(im), od)
             k2.append(K2.windowed_top2.launches)
             # the host's one read a chunk; a lost robot's carry stays frozen
             h = torch.cat([t.to(torch.float32)[..., None], p], -1).cpu().numpy()
@@ -1724,15 +1832,40 @@ def phase_fleet_localization(cfg, world, ms, vocab):
             last_b = torch.where(t.all(1)[:, None], od[:, -1], last_b)
         torch.cuda.synchronize()
         return (np.concatenate(poses, 1), np.concatenate(tracked, 1), k2,
-                time.perf_counter() - t0)
+                time.perf_counter() - t0, carries)
 
-    run_fleet()                                                   # warm-up
+    run_fleet(range(B))                                           # warm-up
     with Counted(K2, "_top2_batched_op") as spy:
-        poses, tracked, k2, dt = run_fleet()
+        poses, tracked, k2, dt, _ = run_fleet(range(B))
     if spy.calls != k * n_chunks or spy.first is None:
         raise SystemExit(f"chip_smoke: fleet localization made {spy.calls} batched K2 calls")
     real = tuple(spy.first[0])
 
+    # (i) each robot in the fleet against itself in a fleet of one
+    alone = [run_fleet([r]) for r in range(B)]
+    fleet_bitwise = all(np.array_equal(poses[r], alone[r][0][0])
+                        and np.array_equal(tracked[r], alone[r][1][0]) for r in range(B))
+    mesh_bitwise = None
+    if mesh is not None:
+        mp, mt = run_fleet(range(B), on_mesh=True)[:2]
+        mesh_bitwise = bool(np.array_equal(mp, poses) and np.array_equal(mt, tracked))
+
+    # (ii) the fleet of one against Localizer.process_chunk, chunk by chunk
+    loc = Localizer(cfg, ms, vocab)
+    chunk_diffs, flags_ok = [], True
+    for r in range(B):
+        p1, t1, carries = alone[r][0][0], alone[r][1][0], alone[r][4]
+        for c in range(n_chunks):
+            im, od = chunk(c, [r])
+            loc.set_pose(carries[c][0][0], carries[c][1][0])
+            out = loc.process_chunk(list(im[0]), list(od[0]))
+            fl = list(map(bool, t1[c * k:(c + 1) * k]))
+            upto = fl.index(False) if False in fl else k
+            flags_ok &= [p is not None for p in out[:upto]] == fl[:upto]
+            chunk_diffs += [float(np.abs(p1[c * k + j] - out[j]).max()) for j in range(upto)
+                            if out[j] is not None]
+
+    # the old comparison: one continuous process_chunk run a robot
     singles, single_s = [], 0.0
     for r in range(B):
         loc = Localizer(cfg, ms, vocab)
@@ -1741,28 +1874,26 @@ def phase_fleet_localization(cfg, world, ms, vocab):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for c in range(n_chunks):
-            im, od = chunk(c)
-            out.extend(loc.process_chunk(list(im[r]), list(od[r])))
+            im, od = chunk(c, [r])
+            out.extend(loc.process_chunk(list(im[0]), list(od[0])))
         torch.cuda.synchronize()
         single_s += time.perf_counter() - t0
         singles.append(out)
-    diffs, flags_ok = [], True
+    whole = []
     for r in range(B):
         fl = list(map(bool, tracked[r]))
         upto = fl.index(False) if False in fl else len(fl)
-        ref_fl = [p is not None for p in singles[r]]
-        flags_ok &= ref_fl[:upto] == fl[:upto]
-        diffs += [float(np.abs(poses[r, j] - singles[r][j]).max()) for j in range(upto)
+        whole += [float(np.abs(poses[r, j] - singles[r][j]).max()) for j in range(upto)
                   if singles[r][j] is not None]
     n = B * k * n_chunks
     run = dict(B=B, k=k, chunks=n_chunks, robot_frames=n, tracked=int(tracked.sum()),
                robot_frames_per_s=n / dt, single_robot_frames_per_s=n / single_s,
-               k2_launches_per_chunk=k2, pose_max_diff_vs_single=max(diffs, default=0.0),
-               flags_equal_single=flags_ok, n1_n2=(real[0].shape[0], real[6].shape[1]))
+               k2_launches_per_chunk=k2, fleet_bitwise_fleet_of_one=fleet_bitwise,
+               pose_max_diff_chunkwise=max(chunk_diffs, default=0.0),
+               flags_equal_chunkwise=flags_ok, pose_tol=FEED_LOC_POSE_TOL,
+               pose_max_diff_whole_run=max(whole, default=0.0),
+               mesh_bitwise=mesh_bitwise, n1_n2=(real[0].shape[0], real[6].shape[1]))
     log("fleet localization: " + json.dumps(run))
-    if (not flags_ok or run["pose_max_diff_vs_single"] > FEED_LOC_POSE_TOL
-            or any(x != k for x in k2) or run["tracked"] < 0.95 * n):
-        raise SystemExit("chip_smoke: fleet localization failed its checks")
     return run, real
 
 
@@ -2285,6 +2416,189 @@ def phase_merge():
                 resume=resume, merge_many=many_out)
 
 
+def schur_spy(keep_shape=None, keep=0):
+    """A stand-in for ``ba.schur_reduce`` that records every call's (K, M)
+    and keeps the (Hpx, Hxx⁻¹) of the first ``keep`` calls at
+    ``keep_shape``; install with ``spied_schur``."""
+    spy = dict(shapes=[], kept=[])
+    orig = ba.schur_reduce
+
+    def reduce_spy(Hpp, bp, Hpx, Hxx_inv, bx):
+        shape = (Hpx.shape[0], Hpx.shape[2])
+        spy["shapes"].append(shape)
+        if shape == keep_shape and len(spy["kept"]) < keep:
+            spy["kept"].append((Hpx, Hxx_inv))
+        return orig(Hpp, bp, Hpx, Hxx_inv, bx)
+
+    spy["fn"], spy["orig"] = reduce_spy, orig
+    return spy
+
+
+@contextlib.contextmanager
+def spied_schur(spy):
+    ba.schur_reduce = spy["fn"]
+    try:
+        yield spy
+    finally:
+        ba.schur_reduce = spy["orig"]
+
+
+def block_schur_check(Hpx, Hxx_inv, what):
+    """The Schur kernel on a real damped point block of the distributed
+    local BA against the plain version in f64, its error measured against
+    the sum of the products' magnitudes (max of the plain version on
+    |Hpx| and |Hxx⁻¹|, the scale a floating-point sum of products is
+    accurate to): within SCHUR_ABS_REL_MAX of it. On these blocks S is a
+    cancelling sum ~3,000-6,000 times smaller than that scale, so the
+    error against max|S| (printed, with the f32 einsum pair's) says how
+    much cancelled, not how well the kernel sums."""
+    want = K3.point_reduction_plain(Hpx.double(), Hxx_inv.double())
+    scale = float(K3.point_reduction_plain(Hpx.double().abs(), Hxx_inv.double().abs())
+                  .abs().max())
+    got = K3.point_reduction(Hpx, Hxx_inv)
+    plain32 = K3.point_reduction_plain(Hpx, Hxx_inv)
+    torch.cuda.synchronize()
+    err = float((got.double() - want).abs().max())
+    smax = float(want.abs().max())
+    out = dict(shape_KM=(Hpx.shape[0], Hpx.shape[2]), abs_rel_err=err / scale,
+               abs_rel_bound=SCHUR_ABS_REL_MAX, rel_err=err / smax,
+               einsum_f32_rel_err=float((plain32.double() - want).abs().max()) / smax,
+               cancellation=scale / smax)
+    if not (math.isfinite(err) and err / scale <= SCHUR_ABS_REL_MAX):
+        raise SystemExit(f"chip_smoke: Schur kernel on {what}: " + json.dumps(out))
+    return out
+
+
+def phase_mesh_solvers(mesh):
+    """``entry.dryrun_multichip`` on ``mesh`` (MESH_BLOCKS blocks of the
+    card): every distributed path at the JAX package's dry-run shapes with
+    its asserts, each solve's seconds, K3's launches and shapes, and K3
+    against its plain version in f64 on each block of the distributed
+    local BA's first step, at (64, 512). Run in the child in deterministic
+    mode: the local BA's float scatter-adds otherwise add in another order
+    from run to run, and one solve's points move between two runs of
+    itself by as much as the dry run's 1e-3 point tolerance
+    (``examples/torch_check_spread.py --ba``)."""
+    block = (64, 2048 // mesh.size)
+    spy = schur_spy(block, mesh.size)
+    K1.fast_nms.launches = K2.windowed_top2.launches = K3.point_reduction.launches = 0
+    with spied_schur(spy):
+        try:
+            out = dryrun_multichip(mesh.size, device="cuda")
+        except AssertionError as e:
+            raise SystemExit(f"chip_smoke: dryrun_multichip on {mesh}: {e!r}")
+    k1, k2, k3 = K1.fast_nms.launches, K2.windowed_top2.launches, K3.point_reduction.launches
+    checks = [block_schur_check(Hpx, Hxx_inv, f"block {b} of the distributed local BA")
+              for b, (Hpx, Hxx_inv) in enumerate(spy["kept"])]
+    shapes = sorted(set(spy["shapes"]))
+    cfg_s = session_cfg()
+    # 3 LM steps x blocks at (64, 512); the single solves at (64, 2048);
+    # the session's local BAs at (16, 512), its joint GBAs a block each at
+    # (64, 1024)
+    want = {block, (64, 2048), (cfg_s.cap.local_kfs + cfg_s.cap.local_ref_kfs,
+                                cfg_s.cap.local_mps),
+            (cfg_s.cap.max_kfs, cfg_s.cap.max_mps // mesh.size)}
+    out.update(k1_launches=k1, k2_launches=k2, k3_launches=k3, k3_shapes=shapes,
+               k3_calls=len(spy["shapes"]), k3_block_checks=checks, blocks=mesh.size)
+    log("mesh solvers: " + json.dumps(out))
+    if k1 < 1 or k2 < 1:
+        raise SystemExit(f"chip_smoke: the mesh solvers' session launched K1 {k1}, K2 {k2} times")
+    if (len(checks) != mesh.size or k3 != len(spy["shapes"]) or set(shapes) != want
+            or spy["shapes"].count(block) != 3 * mesh.size):
+        raise SystemExit(f"chip_smoke: mesh solvers' K3 launches {k3} at {shapes}, "
+                         f"want the shapes {sorted(want)}")
+    return out
+
+
+def phase_mesh_session(world, mesh, single):
+    """The loop phase's scene at the bench widths with the default
+    Capacity, one draw, ``SlamSystem(cfg, mesh=mesh)``: the bank split
+    over the blocks, the pose graph edge-sharded, the joint GBA
+    partitioned with K3 on each block at (max_kfs, max_mps / n). Held to
+    the loop phase's JAX spread; K3's launches counted; each block of the
+    first joint GBA checked on its real damped system in f64 and block 0
+    timed; frames/s beside the single-device loop phase's (``single``)."""
+    cfg, gt, odo, imgs = loop_scene(world)
+    block = (cfg.cap.max_kfs, cfg.cap.max_mps // mesh.size)
+    spy = schur_spy(block, mesh.size)
+    K1.fast_nms.launches = K2.windowed_top2.launches = K3.point_reduction.launches = 0
+    with spied_schur(spy):
+        slam, run = run_loop(cfg, imgs, odo, gt, seed=0, mesh=mesh)
+    k3 = K3.point_reduction.launches
+    lc = slam._loop_closer
+    local = (cfg.cap.local_kfs + cfg.cap.local_ref_kfs, cfg.cap.local_mps)
+    want_k3 = (cfg.local_iter * run["n_local_ba"]
+               + mesh.size * cfg.gm_joint_ba_iters * run["n_joint_gba"])
+    bank_blocks = len(lc.bank.blocks) if isinstance(lc.bank, ShardedRows) else 0
+    run.update(k1_launches=K1.fast_nms.launches, k2_launches=K2.windowed_top2.launches,
+               k3_launches=k3, k3_want=want_k3, k3_shapes=sorted(set(spy["shapes"])),
+               k3_block_launches=spy["shapes"].count(block), dist=lc._dist,
+               bank_blocks=bank_blocks, single_device_frames_per_s=single["frames_per_s"],
+               single_device_kf=single["n_kf"], single_device_ate_corrected=single["ate_corrected"])
+    log("mesh session: " + json.dumps(run))
+    if (not loop_draw_ok(run) or not lc._dist or bank_blocks != mesh.size or k3 != want_k3
+            or run["k1_launches"] != len(imgs) or run["k2_launches"] < 1
+            or set(spy["shapes"]) != {local, block} or run["n_joint_gba"] < 1
+            or len(spy["kept"]) != mesh.size):
+        raise SystemExit("chip_smoke: the mesh session failed its checks (keyframes "
+                         f"{JAX_LOOP_KF}, >= 1 loop, the JAX spread, the bank in {mesh.size} "
+                         f"blocks, K3 {k3} launches, want {want_k3})")
+    blocks = []
+    for b, (Hpx, Hxx_inv) in enumerate(spy["kept"]):
+        blocks.append(real_schur_check(Hpx, Hxx_inv, f"block {b} of the mesh session's joint GBA",
+                                       times=b == 0))
+        # the block's points with any observation weight (live points sit in
+        # the bank's low slots, so the tail blocks hold none)
+        blocks[-1]["live_points"] = int((Hpx.abs().sum((0, 1, 3)) > 0).sum())
+    log("mesh session blocks' live points: " + json.dumps([b["live_points"] for b in blocks]))
+    return dict(run=run, blocks=blocks)
+
+
+def phase_runtime(mesh):
+    """``parallel.runtime`` in this process: world size 1 over NCCL, a
+    mesh of the same blocks as ``mesh`` on the card. The distributed pose
+    graph (K = 256) and a psum of ``arange`` through it equal, bitwise,
+    the in-process mesh's (run in deterministic mode: the solver's float
+    scatter-adds then add in one order)."""
+    import socket
+
+    from se2lam_tpu_torch.parallel import dist_solve_pose_graph, runtime
+    from se2lam_tpu_torch.solver.posegraph import synthetic_pose_graph
+
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    runtime.init_distributed(coordinator=f"127.0.0.1:{port}", num_processes=1, process_id=0,
+                             device="cuda", blocks_per_device=mesh.size)
+    try:
+        gm = runtime.global_mesh()
+        x = torch.arange(4.0 * mesh.size, device="cuda")
+        psum = [float(m.psum([b.sum() for b in m.split(x)])[0]) for m in (gm, mesh)]
+        K = 256
+        pg = synthetic_pose_graph(np.random.default_rng(0), K,
+                                  loop_pairs=[(0, K - 30), (10, K - 5), (40, K - 1)],
+                                  device="cuda")
+        got = {}
+        with deterministic():
+            for name, m in (("runtime", gm), ("mesh", mesh)):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                got[name] = dist_solve_pose_graph(pg, m, iters=20, cg_iters=48)[0]
+                torch.cuda.synchronize()
+                got[name + "_s"] = time.perf_counter() - t0
+        backend = runtime.backend()
+    finally:
+        runtime.shutdown()
+    out = dict(backend=backend, world_size=1, blocks=gm.size, psum=psum,
+               pose_graph_bitwise=bool(torch.equal(got["runtime"], got["mesh"])),
+               runtime_s=got["runtime_s"], mesh_s=got["mesh_s"])
+    log("runtime: " + json.dumps(out))
+    if (backend != "nccl" or psum != [float(np.arange(4 * mesh.size).sum())] * 2
+            or not out["pose_graph_bitwise"]):
+        raise SystemExit("chip_smoke: the NCCL runtime's mesh differs from the in-process one")
+    return out
+
+
 def timed(name, fn, *args):
     """Run one phase and print its seconds."""
     t0 = time.perf_counter()
@@ -2317,12 +2631,15 @@ def main():
     child = timed("feeds, driver, live serving (child process)", phase_feeds, MAP_DIR)
     feeds, loc_feeds = child["slam"], child["localization"]
     ms, vocab, _ = load_map(str(MAP_DIR))
-    fleet = timed("fleet tracking", phase_fleet_tracking, cfg, oc)
+    mesh = make_mesh(MESH_BLOCKS, device="cuda")
+    fleet = timed("fleet tracking", phase_fleet_tracking, cfg, oc, mesh)
     fleet_loc, real_b = timed("fleet localization", phase_fleet_localization, cfg, world, ms,
-                              vocab)
+                              vocab, mesh)
     t2b = timed("k2 batched", phase_k2_batched, real_b)
     live = timed("live serving (timed)", phase_live_timed, cfg, world)
     merge = timed("merge", phase_merge)
+    mesh_solvers = child["mesh_solvers"]
+    mesh_run = timed("mesh session", phase_mesh_session, loop_world, mesh, lp["run"])
     slice6 = {name: {f"launches_{p}": v[f"k{i}_launches"] for p, v in (
         ("dataset", data), ("live_chunked", live["chunked"]), ("live_pipelined", live["pipelined"]),
         ("merge_mapping", merge["mapping"]), ("merge", merge["runs"][0]))}
@@ -2344,6 +2661,9 @@ def main():
         launches_feeds={f: v["k1"] for f, v in feeds["launches"].items()},
         launches_fleet_tracking={B: v["k1_launches"] for B, v in fleet.items()},
         launches_merged_localizer=merge["localizer"]["k1_launches"], **slice6["k1"],
+        launches_fleet_tracking_mesh=fleet["mesh"]["k1_launches"],
+        launches_mesh_solvers=mesh_solvers["k1_launches"],
+        launches_mesh_session=mesh_run["run"]["k1_launches"],
     )
     loc, glob = ts[LOCAL_BA_SHAPE], ts[GLOBAL_BA_SHAPE]
     schur_kernel = dict(
@@ -2360,6 +2680,12 @@ def main():
         launches_feeds={f: v["k3"] for f, v in feeds["launches"].items()},
         merge_joint_gba=merge["joint"],
         merge_joint_rel_err=[r["joint_schur_rel_err"] for r in merge["runs"]], **slice6["k3"],
+        launches_mesh_solvers=mesh_solvers["k3_launches"],
+        mesh_solvers_shapes_KM=mesh_solvers["k3_shapes"],
+        mesh_solvers_block_checks=mesh_solvers["k3_block_checks"],
+        launches_mesh_session=mesh_run["run"]["k3_launches"],
+        launches_mesh_session_per_block=mesh_run["run"]["k3_block_launches"],
+        mesh_session_shapes_KM=mesh_run["run"]["k3_shapes"], mesh_session_blocks=mesh_run["blocks"],
     )
     match_kernel = dict(
         name="windowed_top2", route="cuda", source="se2lam_tpu_torch/csrc/windowed_top2.cu",
@@ -2376,6 +2702,8 @@ def main():
         batched=t2b, launches_merged_localizer=merge["localizer"]["k2_launches"],
         launches_merged_fleet_per_chunk=merge["fleet"]["k2_launches"],
         launches_live_localizer=child["live"]["localizer"]["k2_launches"], **slice6["k2"],
+        launches_mesh_solvers=mesh_solvers["k2_launches"],
+        launches_mesh_session=mesh_run["run"]["k2_launches"],
     )
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [kernel, schur_kernel, match_kernel]}), flush=True)

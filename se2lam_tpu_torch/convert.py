@@ -23,7 +23,8 @@ from .vocab import Vocabulary
 __all__ = [
     "orb_features_from_numpy", "track_state_from_numpy", "config_from_fields",
     "map_state_from_numpy", "ba_problem_from_numpy", "vocabulary_from_numpy",
-    "pose_graph_from_numpy", "loop_closer_from_numpy",
+    "pose_graph_from_numpy", "loop_closer_from_numpy", "dist_ba_problem_from_numpy",
+    "sharded_bank_from_numpy",
 ]
 
 
@@ -108,3 +109,25 @@ def loop_closer_from_numpy(cfg: SystemConfig, *, vocab, bank, last_loop=None, co
     lc._gba_cooldown = bool(cooldown)
     lc._n_inserts, lc._trained_at_nkf = int(n_inserts), int(trained_at_nkf)
     return lc
+
+
+def dist_ba_problem_from_numpy(dprob, n: int, device=None):
+    """A ``parallel.dist_ba.DistBAProblem`` from the JAX package's (its
+    sharded fields in the concatenated layout, block b's rows after block
+    b-1's): each sharded field cut into ``n`` blocks on ``device``."""
+    from .parallel.dist_ba import _SHARDED, DistBAProblem
+
+    dev = resolve_device(device)
+    fields = {}
+    for k in DistBAProblem._fields:
+        t = _tensor(getattr(dprob, k), dev)
+        fields[k] = list(t.chunk(n)) if k in _SHARDED else t
+    return DistBAProblem(**fields)
+
+
+def sharded_bank_from_numpy(bank, mesh):
+    """A bank split over ``mesh`` (``parallel.dist_loop.ShardedRows``) from
+    the JAX package's (K, W) bank in its concatenated layout."""
+    from .parallel.dist_loop import shard_bank
+
+    return shard_bank(_tensor(bank, mesh.devices[0]), mesh)

@@ -16,7 +16,7 @@ from __future__ import annotations
 
 import torch
 
-from .ops import se2, se3
+from .ops import fixed_order, se2, se3
 from .ops.camera import CameraModel
 
 __all__ = [
@@ -43,7 +43,7 @@ def se2_to_se3_mat(pose):
 
 def _camera_frame_point(pose, point_w, Tcb):
     """lc = Tcb · SE3(pose⁻¹) · X and Rcw."""
-    Tcw = Tcb @ se2.to_se3(se2.inv(pose))
+    Tcw = fixed_order.matmul(Tcb, se2.to_se3(se2.inv(pose)))
     return se3.apply(Tcw, point_w), Tcw[..., :3, :3]
 
 
@@ -91,7 +91,7 @@ def _proj_jac_rcw(lc, Rcw, cam: CameraModel):
         ],
         dim=-2,
     )
-    return J_pi @ Rcw
+    return fixed_order.matmul(J_pi, Rcw)
 
 
 def pixel_jacobian(lc, cam: CameraModel):
@@ -110,7 +110,7 @@ def se2xyz_residual_jac(pose, point_w, uv, cam: CameraModel, Tcb):
     lc, Rcw = _camera_frame_point(pose, point_w, Tcb)
     r = _project(lc, cam) - uv
     JR = _proj_jac_rcw(lc, Rcw, cam)
-    J_theta = (JR @ se3.skew(point_w - _planar(pose)))[..., :, 2:3]
+    J_theta = fixed_order.matmul(JR, se3.skew(point_w - _planar(pose)))[..., :, 2:3]
     J_pose = torch.cat([-JR[..., :, :2], J_theta], dim=-1)
     return r, J_pose, JR
 

@@ -58,7 +58,7 @@ from .frontend.ransac import ransac_fundamental
 from .frontend.windowed_match import match_by_projection_streamed
 from .loopclose import kf_features
 from .mapstate import MapState, kf_Tcw
-from .ops import se2, se3
+from .ops import fixed_order, se2, se3
 from .ops.camera import undistort_points
 from .ops.topk import top_k
 from .solver.poseonly import solve_pose_only
@@ -109,7 +109,16 @@ def _localize_step(ms: MapState, pose, last_odom, feats: OrbFeatures, odo,
     device: odometry prediction, projection match, pose-only solve, and
     the gates matches ≥ ``min_matches``, inliers ≥ ``min_matches``,
     covisible keyframes > 0. Returns (pose_out, ok); ``pose_out`` is the
-    prediction when not ok. Reads nothing back to the host."""
+    prediction when not ok. Reads nothing back to the host.
+
+    On the card its sums take the fixed-order forms (``ops/fixed_order``)
+    alone as in a fleet's vmap, so a robot localized alone is bitwise the
+    same robot in a fleet of any size."""
+    with fixed_order.forced(pose.device.type == "cuda"):
+        return _localize_step_sums(ms, pose, last_odom, feats, odo, min_matches, cfg)
+
+
+def _localize_step_sums(ms, pose, last_odom, feats, odo, min_matches, cfg):
     c = tracking.constants(cfg, pose.device)
     pred = se2.compose(pose, se2.minus(odo, last_odom))
     feat_match, n = _project_and_match(ms, feats, pred, cfg)

@@ -20,9 +20,17 @@ and runs the closure branch only when it fires. RANSAC draws come from a
 ``torch.Generator`` or, for parity with the JAX package, as Gumbel noise
 of shape (candidates, trials, N).
 
+On a device mesh (``LoopCloser(mesh=...)`` with more than one block) the
+stage runs staged, as the JAX package's mesh path does
+(``start_async``/``advance``, driven to completion by ``on_new_kf``): the
+BoW bank is split over the mesh (``parallel/dist_loop``), the pose-graph
+GlobalBA is the edge-sharded PCG (``run_global_ba_dist``) and the joint
+GBA the map-block partitioned Schur-GN (``run_global_ba_joint_dist``,
+kernel K3 on each CUDA block).
+
 Not here (``ROADMAP.md``): the 2-KF mini-BA constraint
 ``build_loop_constraint_ba`` with its sparsifier (test-only in the JAX
-package), and the mesh path's staged loop pipeline and distributed solvers.
+package).
 """
 from __future__ import annotations
 
@@ -34,7 +42,7 @@ import torch
 from . import factors
 from . import vocab as vocab_mod
 from .config import SystemConfig
-from .device import resolve_device
+from .device import resolve_device, same_device
 from .frontend.matcher import mutual_match
 from .frontend.orb import OrbFeatures
 from .frontend.ransac import ransac_fundamental
@@ -50,10 +58,12 @@ __all__ = [
     "LoopCloser", "kf_features", "verify_loop", "build_loop_constraint",
     "verify_and_build_batch", "select_feat_pairs", "add_ftr_edge", "merge_loop_mps",
     "bow_detect", "build_pose_graph", "apply_pose_graph_result", "run_global_ba",
-    "build_global_ba", "run_global_ba_joint", "loop_stage",
+    "build_global_ba", "run_global_ba_joint", "loop_stage", "run_global_ba_dist",
+    "run_global_ba_joint_dist",
 ]
 
 _I32 = torch.int32
+
 # Huber on the graph edges: accumulated loop/feature constraints carry
 # estimation error; robustifying keeps a few bad ones from dragging a
 # well-odometered trajectory
@@ -433,13 +443,15 @@ def _joint_apply(ms: MapState, prob: BAProblem, poses, points) -> MapState:
     return ms._replace(kf_pose=new_kf_pose, mp_pos=new_mp_pos)
 
 
-def _joint_ba_cfg(ms: MapState, cfg: SystemConfig, iters: int) -> BAConfig:
-    """The joint BA's solver settings: the observation axis is the M×P
-    grid (points accumulate by a reshape-sum), and LM starts at 1e-2
-    (full-map problems start from an outlier-contaminated state where a
-    barely damped step overshoots)."""
+def _joint_ba_cfg(ms: MapState, cfg: SystemConfig, iters: int, grid: bool = True) -> BAConfig:
+    """The joint BA's solver settings: with ``grid`` the observation axis
+    is the M×P grid (points accumulate by a reshape-sum; the distributed
+    partition re-buckets observations by block, so it passes False), and
+    LM starts at 1e-2 (full-map problems start from an outlier-contaminated
+    state where a barely damped step overshoots)."""
     return BAConfig(iters=iters, huber_delta=float(cfg.th_huber2) ** 0.5,
-                    obs_grid_p=int(ms.mp_obs_kf.shape[1]), lm_init_lambda=1e-2)
+                    obs_grid_p=int(ms.mp_obs_kf.shape[1]) if grid else 0,
+                    lm_init_lambda=1e-2)
 
 
 def run_global_ba_joint(ms: MapState, cfg: SystemConfig, iters: int = 5):
@@ -451,6 +463,36 @@ def run_global_ba_joint(ms: MapState, cfg: SystemConfig, iters: int = 5):
     prob = _joint_problem(ms, cfg)
     poses, points, info = solve_local_ba(prob, c["cam"], c["Tcb"], _joint_ba_cfg(ms, cfg, iters))
     return _joint_apply(ms, prob, poses, points), info
+
+
+def run_global_ba_dist(ms: MapState, mesh, iters: int = 15, cg_iters: int | None = None,
+                       huber: float = POSE_GRAPH_HUBER):
+    """The GlobalBA pose graph solved with its edges split over ``mesh``
+    (matrix-free PCG, ``parallel/dist_posegraph.py``) instead of the dense
+    factorization; ``cg_iters`` defaults to the bank's capacity (chain-
+    dominated graphs want ≈ K). Returns (MapState, info)."""
+    from .parallel.dist_posegraph import dist_solve_pose_graph
+
+    new_poses, info = dist_solve_pose_graph(
+        build_pose_graph(ms), mesh, iters=iters, cg_iters=int(ms.K) if cg_iters is None
+        else cg_iters, huber_delta=float(huber), axis=mesh.axis_names[0])
+    return apply_pose_graph_result(ms, new_poses.to(ms.kf_pose.device)), info
+
+
+def run_global_ba_joint_dist(ms: MapState, cfg: SystemConfig, mesh, iters: int = 5):
+    """The joint full-map GBA with the map-point axis partitioned over
+    ``mesh`` (``parallel/dist_ba.sharded_solve_local_ba``: one psum of the
+    blocks' Schur-reduced camera systems per LM step, K3 on each CUDA
+    block at (K, ⌈M/n⌉)). Returns (MapState, info)."""
+    from .parallel.dist_ba import sharded_solve_local_ba
+
+    c = constants(cfg, ms.kf_pose.device)
+    prob = _joint_problem(ms, cfg)
+    poses, points, info = sharded_solve_local_ba(
+        prob, c["cam"], c["Tcb"], _joint_ba_cfg(ms, cfg, iters, grid=False), mesh,
+        axis=mesh.axis_names[0])
+    dev = ms.kf_pose.device
+    return _joint_apply(ms, prob, poses.to(dev), points.to(dev)), info
 
 
 def loop_stage(ms: MapState, k, bank, vocab, last_loop, gba_cooldown, cfg: SystemConfig, *,
@@ -538,14 +580,24 @@ class LoopCloser:
     turn its GlobalMapper off, src/GlobalMapper.cpp:87-147). RANSAC and
     the vocabulary's seed rows draw from ``generator`` (seeded 42 on the
     device when not given); parity tests may set ``stage_gumbel``, a
-    callable giving each keyframe's (5, trials, N) RANSAC noise."""
+    callable giving each keyframe's (5, trials, N) RANSAC noise.
+
+    ``mesh``: a ``parallel.mesh.Mesh``; with more than one block
+    (``_dist``) the bank is split over it and the stage runs staged with
+    the distributed solvers (``on_new_kf``, or ``start_async`` and
+    ``advance``); its first block's device must be ``device``."""
 
     def __init__(self, cfg: SystemConfig, n_words: int | None = None, min_kfs_to_train: int = 2,
                  retrain_factor: float = 2.0, global_ba_iters: int | None = None,
                  detect_loops: bool = True, device=None,
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None, mesh=None):
         self.cfg = cfg
         self.device = resolve_device(device)
+        self.mesh = mesh
+        self._dist = mesh is not None and mesh.size > 1
+        if mesh is not None and not same_device(mesh.devices[0], self.device):
+            raise ValueError(f"the mesh's first block {mesh.devices[0]} is not the loop "
+                             f"closer's device {self.device}")
         self.detect_loops = detect_loops
         # the flat vocabulary scales with the keyframe capacity: score
         # separation between a true revisit and the best impostor scales
@@ -585,6 +637,9 @@ class LoopCloser:
         self._last_loop_host: tuple[int, int] | None = None
         self._last_loop_dev = torch.tensor([-1, -1], dtype=_I32, device=self.device)
         self.last_loop_midx = None   # (N,) loop→cur feature matches
+        self.last_global_ba_info: dict | None = None
+        # host reads of the staged pipeline's last keyframe (its want tuples)
+        self.last_kf_pulls = 0
 
     @property
     def last_loop(self) -> tuple[int, int] | None:
@@ -623,7 +678,142 @@ class LoopCloser:
         self.n_ftr_evicted += int(outs["evicted"])
         return ms
 
-    on_new_kf = on_new_kf_fused
+    def on_new_kf(self, ms: MapState, k) -> MapState:
+        """The per-keyframe stage: on a mesh the staged pipeline run to
+        completion (``start_async``, then ``advance`` on each stage's
+        values read back), else the fused ``loop_stage``."""
+        if not self._dist:
+            return self.on_new_kf_fused(ms, k)
+        pending = self.start_async(ms, k)
+        while pending is not None:
+            ms, pending, _closed = self.advance(ms, pending, self._pull(pending["want"]))
+        return ms
+
+    def _pull(self, want):
+        """A host read of a stage's values."""
+        self.last_kf_pulls += 1
+        return tuple(w.cpu().numpy() for w in want)
+
+    def start_async(self, ms: MapState, k) -> dict:
+        """Stage A of the staged per-keyframe pipeline: the vocabulary
+        lifecycle, the feature-edge candidates and the BoW detect over the
+        (split) bank, dispatched with no host read. Returns a pending record
+        whose ``want`` tensors the caller reads (``_pull``, or a copy
+        started at dispatch) before ``advance``."""
+        k = int(k)
+        self.last_kf_pulls = 0
+        self._n_inserts += 1
+        have_vocab = self.detect_loops and self._ensure_vocab(ms, self._n_inserts)
+        cands = select_feat_pairs(ms, k)
+        if have_vocab:
+            from .parallel.dist_loop import ShardedRows, sharded_bow_detect
+
+            v, _ = vocab_mod.bow_transform(self.vocab, _row(ms.kf_desc, k),
+                                           _row(ms.kf_feat_valid, k))
+            self.bank = (self.bank.put_row(k, v) if isinstance(self.bank, ShardedRows)
+                         else _put_row(self.bank, k, v))
+            ids = torch.arange(ms.K, device=ms.kf_pose.device)
+            eligible = ms.kf_valid & (ids <= k - self.cfg.gm_dcl_min_kfid_offset)
+            best_i, best_s = sharded_bow_detect(self.bank, v, eligible)
+            want = (cands, best_i.to(self.device), best_s.to(self.device))
+        else:
+            want = (cands,)
+        return {"stage": "detect", "k": k, "have_vocab": have_vocab, "want": want}
+
+    def advance(self, ms: MapState, pending: dict, fetched):
+        """Consume the host values read for ``pending["want"]`` and run the
+        next stage. Returns (ms, next pending or None, closed): ``closed``
+        when a global correction moved keyframe poses (the caller's
+        tracking gauge must be re-based)."""
+        cfg, dev = self.cfg, self.device
+        k = pending["k"]
+        if pending["stage"] == "detect":
+            cands = fetched[0]
+            # the temporal throttle and the BoW score gate, on the host
+            # (DetectLoopClose accept, src/GlobalMapper.cpp:206-254)
+            throttled = (self.last_loop is not None
+                         and k - self.last_loop[1] < self.min_kfs_between_loops)
+            loop_cand = -1
+            if (pending["have_vocab"] and not throttled
+                    and float(fetched[2]) >= cfg.gm_dcl_min_score_best):
+                loop_cand = int(fetched[1])
+            feat_cands = [int(c) for c in cands if int(c) >= 0]
+            if loop_cand < 0 and not feat_cands:
+                self._gba_cooldown = False          # src/GlobalMapper.cpp:151-155
+                return ms, None, False
+            # ONE batched verify + constraint build: the feature-edge
+            # candidates, the loop candidate in the last slot (width 1 when
+            # there is no feature candidate)
+            C = 1 if not feat_cands else len(cands) + 1
+            vec = [-1] * C
+            vec[:len(feat_cands)] = feat_cands
+            vec[-1] = loop_cand
+            slots = torch.tensor([max(c, 0) for c in vec], dtype=_I32, device=dev)
+            midx_b, n_kp_b, n_mp_b, n_cur_b, meas_b, info_b, n_good_b = verify_and_build_batch(
+                ms, k, slots, cfg, cfg.cap.ransac_trials, generator=self.generator)
+            return ms, {
+                "stage": "gates", "k": k, "feat_cands": feat_cands, "loop_cand": loop_cand,
+                "midx_b": midx_b, "meas_b": meas_b, "info_b": info_b,
+                "want": (n_kp_b, n_mp_b, n_cur_b, n_good_b, ms.ftr_valid.all()),
+            }, False
+
+        assert pending["stage"] == "gates"
+        feat_cands, loop_cand = pending["feat_cands"], pending["loop_cand"]
+        meas_b, info_b = pending["meas_b"], pending["info_b"]
+        n_kp_h, n_mp_h, n_cur_h, n_good_h, bank_full = fetched
+        feat_renewed = False
+        for c, cand_c in enumerate(feat_cands):
+            if int(n_mp_h[c]) < 10 or int(n_good_h[c]) < 10:
+                continue
+            ms = add_ftr_edge(ms, cand_c, k, meas_b[c], info_b[c])
+            feat_renewed = True
+
+        def global_ba(ms):
+            if self._dist:
+                return run_global_ba_dist(ms, self.mesh, iters=self.global_ba_iters,
+                                          huber=cfg.gm_pg_huber)
+            return run_global_ba(ms, iters=self.global_ba_iters, huber=cfg.gm_pg_huber)
+
+        def renewal_or_clear(ms):
+            # the feat-graph-renewal GlobalBA (src/GlobalMapper.cpp:142-147),
+            # else the cooldown clears (:151-155)
+            if feat_renewed and not self._gba_cooldown:
+                ms, self.last_global_ba_info = global_ba(ms)
+                self._gba_cooldown = True
+                self.n_renewal_gbas += 1
+                return ms, True
+            self._gba_cooldown = False
+            return ms, False
+
+        if loop_cand < 0:
+            ms, corrected = renewal_or_clear(ms)
+            return ms, None, corrected
+        n_kp, n_mp, n_cur, n_good = (int(n_kp_h[-1]), int(n_mp_h[-1]), int(n_cur_h[-1]),
+                                     int(n_good_h[-1]))
+        if (n_mp < cfg.gm_vcl_num_min_match_mp or n_kp < cfg.gm_vcl_num_min_match_kp
+                or n_mp < cfg.gm_vcl_ratio_min_match_mp * max(n_cur, 1)
+                or n_good < cfg.gm_vcl_num_min_match_mp):
+            ms, corrected = renewal_or_clear(ms)
+            return ms, None, corrected
+        if bool(bank_full):
+            self.n_ftr_evicted += 1       # add_ftr_edge evicts the weakest edge
+        midx = pending["midx_b"][-1]
+        ms = add_ftr_edge(ms, loop_cand, k, meas_b[-1], info_b[-1], evict_if_full=True)
+        ms = merge_loop_mps(ms, k, loop_cand, midx)
+        ms, gba_info = global_ba(ms)
+        if cfg.gm_joint_ba_iters > 0:
+            if self._dist:
+                ms, joint = run_global_ba_joint_dist(ms, cfg, self.mesh,
+                                                     iters=cfg.gm_joint_ba_iters)
+            else:
+                ms, joint = run_global_ba_joint(ms, cfg, iters=cfg.gm_joint_ba_iters)
+            gba_info = {**gba_info, "joint": joint}
+        self.n_loops_closed += 1
+        self._gba_cooldown = True
+        self.last_loop = (loop_cand, k)
+        self.last_loop_midx = midx
+        self.last_global_ba_info = gba_info
+        return ms, None, True
 
     def adopt_vocab(self, vocab, ms: MapState):
         """Install a vocabulary and score every existing keyframe into the
@@ -637,8 +827,18 @@ class LoopCloser:
     def rebuild_bank(self, ms: MapState):
         """Every keyframe's BoW vector under the current vocabulary (after
         a slot remap; the retrain schedule is untouched)."""
-        self.bank, _ = vocab_mod.bow_transform(self.vocab, ms.kf_desc,
-                                               ms.kf_feat_valid & ms.kf_valid[:, None])
+        bank, _ = vocab_mod.bow_transform(self.vocab, ms.kf_desc,
+                                          ms.kf_feat_valid & ms.kf_valid[:, None])
+        self.bank = self._place_bank(bank)
+
+    def _place_bank(self, bank):
+        """On a mesh, the bank split along its keyframe axis
+        (``parallel/dist_loop.shard_bank``) when the mesh divides it."""
+        if self._dist and bank.shape[0] % self.mesh.size == 0:
+            from .parallel.dist_loop import shard_bank
+
+            return shard_bank(bank, self.mesh, axis=self.mesh.axis_names[0])
+        return bank
 
     def _ensure_vocab(self, ms: MapState, n_inserts: int) -> bool:
         if self.vocab is not None and n_inserts < self._trained_at_nkf * self.retrain_factor:

@@ -23,7 +23,7 @@ import torch
 
 from .config import Capacity
 from .device import resolve_device
-from .ops import se2, se3
+from .ops import fixed_order, se2, se3
 
 __all__ = ["MapState", "empty_map", "kf_Tcw", "MAX_FTR_EDGES"]
 
@@ -145,4 +145,4 @@ def kf_Tcw(pose_se2, Tcb):
     """World→camera 4x4 from a body SE2 pose: Tcw = Tcb · (Twb)⁻¹
     (reference KeyFrame::setPose, src/KeyFrame.cpp:183-193). Batched
     over leading axes of ``pose_se2``."""
-    return Tcb @ se3.inv(se2.to_se3(pose_se2))
+    return fixed_order.matmul(Tcb, se3.inv(se2.to_se3(pose_se2)))

@@ -8,6 +8,10 @@ product's kernel, and with it the order of its sums, by the batch's size.
 (a 1000-point ``torch.sum`` and a (3,)·(3, 3) ``einsum`` in RANSAC, the
 3x3 normal equations of DLT triangulation), enough to change a robot's
 inliers, and with them its keyframe decisions, with the fleet it runs in.
+The fleet localizer's step has more: the pose-only solve's cost and
+normal equations (sums over the frame's features), its 3x3 step, and the
+small products of the SE(3) transforms and the reprojection Jacobians
+(``ops/se3``, ``factors``, ``mapstate.kf_Tcw``).
 
 On a CUDA tensor that a ``torch.func`` transform wraps, these helpers use
 forms whose order is fixed by the shapes of one robot's problem: products
@@ -15,18 +19,57 @@ summed over a short last axis, and long sums halved with elementwise adds.
 Elsewhere they are the plain forms: an unbatched call has no fleet to
 depend on and keeps its bits, and on the CPU the plain forms keep one
 order at any batch size and give the bits that the parity tests hold
-against the JAX package.
+against the JAX package. The one exception is ``forced()``: within it a
+CUDA tensor takes the fixed forms batched or not, which the localizer's
+tracked step uses so that a robot localized alone on the card is bitwise
+the same robot in a fleet.
 """
 from __future__ import annotations
 
+import contextlib
+import threading
+
 import torch
 
-__all__ = ["sum_points", "matmul", "contract", "rows_matvec", "rows_vecmat"]
+__all__ = ["forced", "active", "batched", "sum_halving", "sum_points", "matmul", "contract", "rows_matvec", "rows_vecmat"]
+
+
+_FORCED = threading.local()
+
+
+@contextlib.contextmanager
+def forced(on: bool = True):
+    """Within it (this thread only), CUDA tensors take the fixed-order
+    forms whether a transform wraps them or not."""
+    prev = getattr(_FORCED, "on", False)
+    _FORCED.on = on
+    try:
+        yield
+    finally:
+        _FORCED.on = prev
 
 
 def _fixed(*xs) -> bool:
-    return any(x.device.type == "cuda" and torch._C._functorch.is_functorch_wrapped_tensor(x)
-               for x in xs)
+    force = getattr(_FORCED, "on", False)
+    return any(x.device.type == "cuda"
+               and (force or torch._C._functorch.is_functorch_wrapped_tensor(x)) for x in xs)
+
+
+def active(*xs) -> bool:
+    """Whether the fixed-order forms apply to these tensors."""
+    return _fixed(*xs)
+
+
+def batched(*xs) -> bool:
+    """Whether any of these tensors is a ``torch.func`` transform's, on any
+    device (the pose-only solve's sums depend on the batch's size on the
+    CPU too)."""
+    return any(torch._C._functorch.is_functorch_wrapped_tensor(x) for x in xs)
+
+
+def sum_halving(x):
+    """Sum over the last axis in a fixed order (``_sum_halving``)."""
+    return _sum_halving(x)
 
 
 def _sum_halving(x):

@@ -1,13 +1,14 @@
 """Closed-form small-matrix linear algebra (port of the parts of
-se2lam_tpu.ops.linalg that tracking uses): unrolled Gauss–Jordan for small
+se2lam_tpu.ops.linalg that the port uses): unrolled Gauss–Jordan for small
 PD matrices and adjugate 2x2/3x3 inverses, with the reference's
-elimination order and pivot floors.
+elimination order and pivot floors, and the block-tridiagonal factor and
+solve of the distributed solvers' chain-aware preconditioner.
 """
 from __future__ import annotations
 
 import torch
 
-__all__ = ["inv2x2", "inv3x3", "inv_psd_small"]
+__all__ = ["inv2x2", "inv3x3", "inv_psd_small", "block_tridiag_factor", "block_tridiag_solve"]
 
 
 def inv_psd_small(M, eps: float = 1e-30):
@@ -76,3 +77,52 @@ def inv3x3(M, eps: float = 1e-30):
         dim=-2,
     )
     return adj * inv_det[..., None, None]
+
+
+def block_tridiag_factor(D, L, eps: float = 1e-9):
+    """Forward factorization of a symmetric block-tridiagonal system with
+    (K, b, b) diagonal blocks ``D`` and sub-diagonal blocks ``L`` (``L[k]``
+    couples row k to row k-1; ``L[0]`` must be zero). Returns (Cinv, L),
+    ``Cinv[k]`` the inverse of the running Schur complement
+    C_k = D_k − L_k C_{k-1}⁻¹ L_kᵀ: a K-step sequential sweep of b×b
+    solves, in the JAX package's order (``se2lam_tpu/ops/linalg.py:47``).
+
+    The odometry chain of a SLAM pose graph is exactly block-tridiagonal;
+    solving it directly removes the O(K) CG-iteration wall that a
+    block-Jacobi preconditioner hits on chain-dominated graphs."""
+    b = D.shape[-1]
+    eye = torch.eye(b, dtype=D.dtype, device=D.device)
+    inv = inv3x3 if b == 3 else inv_psd_small
+    prev = torch.zeros((b, b), dtype=D.dtype, device=D.device)
+    out = []
+    for k in range(D.shape[0]):
+        Lk = L[k]
+        prev = inv(D[k] - Lk @ prev @ Lk.transpose(-1, -2) + eps * eye)
+        out.append(prev)
+    return torch.stack(out), L
+
+
+def _affine_scan(A, c):
+    """z_k = A_k z_{k-1} + c_k from z_{-1} = 0, for every k at once: a
+    Hillis-Steele scan over the affine maps (A_k, c_k), log2(K) levels of
+    batched 3x3 products instead of K sequential steps."""
+    K, s = c.shape[0], 1
+    while s < K:
+        c = torch.cat([c[:s], c[s:] + (A[s:] @ c[:-s, :, None])[..., 0]])
+        A = torch.cat([A[:s], A[s:] @ A[:-s]])
+        s *= 2
+    return c
+
+
+def block_tridiag_solve(Cinv, L, r):
+    """Solve M x = r with ``block_tridiag_factor``'s factorization: the
+    forward sweep y_k = C_k⁻¹ (r_k − L_k y_{k-1}), then the backward sweep
+    x_k = y_k − C_k⁻¹ L_{k+1}ᵀ x_{k+1}. ``r`` is (K, b); returns (K, b).
+
+    Both sweeps are linear recurrences, solved as parallel scans
+    (``_affine_scan``): the sums group differently from the JAX package's
+    sequential ``lax.scan``, which an f32 tolerance covers."""
+    y = _affine_scan(-Cinv @ L, (Cinv @ r[..., None])[..., 0])
+    Lnext = torch.cat([L[1:], torch.zeros_like(L[:1])])
+    B = -Cinv @ Lnext.transpose(-1, -2)
+    return _affine_scan(B.flip(0), y.flip(0)).flip(0)

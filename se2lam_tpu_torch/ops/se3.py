@@ -1,10 +1,14 @@
 """SE(3) matrix-group operations on batched tensors (port of the parts of
 se2lam_tpu.ops.se3 that tracking uses; reference cvutil SE3 helpers,
 src/cvutil.cpp:15-43). Transforms are (..., 4, 4) homogeneous matrices.
+Under a fleet's ``torch.vmap`` on the card their small products take the
+fixed-order forms of ``ops/fixed_order``.
 """
 from __future__ import annotations
 
 import torch
+
+from . import fixed_order
 
 __all__ = ["skew", "inv", "apply", "make_rt", "so3_exp"]
 
@@ -39,12 +43,13 @@ def inv(T):
     R = T[..., :3, :3]
     t = T[..., :3, 3]
     Rt = R.transpose(-1, -2)
-    return make_rt(Rt, -torch.einsum("...ij,...j->...i", Rt, t))
+    return make_rt(Rt, -fixed_order.contract("...ij,...j->...i", Rt, t, fixed_order.rows_matvec))
 
 
 def apply(T, pt):
     """Transform 3D point(s): R·p + t (reference cvu::se3map, src/cvutil.cpp:100)."""
-    return torch.einsum("...ij,...j->...i", T[..., :3, :3], pt) + T[..., :3, 3]
+    R = T[..., :3, :3]
+    return fixed_order.contract("...ij,...j->...i", R, pt, fixed_order.rows_matvec) + T[..., :3, 3]
 
 
 def so3_exp(phi):

@@ -10,6 +10,11 @@ projection match is ONE launch of the windowed top-2 kernel for the whole
 fleet (its vmap rule, ``frontend.windowed_match``), so a chunk makes k
 launches whatever B. A robot's carry freezes at its first lost frame;
 the host relocalizes it out of band (a ``Localizer``) and feeds it back.
+
+On a device mesh (``mesh=``) the robots are cut into the mesh's blocks
+(``fleet.shard_fleet``): each block steps its own robots on its device,
+against one copy of the map a device, and the values cross as
+``ShardedFleet``s.
 """
 from __future__ import annotations
 
@@ -21,25 +26,13 @@ from ..frontend.orb import OrbConfig, make_batch_extractor
 from ..localizer import _localize_chunk
 from ..mapstate import MapState
 from ..ops.camera import CameraModel
-from .fleet import _no_mesh
+from .fleet import per_block, run_blocks
 
 __all__ = ["make_fleet_localizer"]
 
 
-def make_fleet_localizer(cfg: SystemConfig, ms: MapState, min_tracked_matches: int = 10,
-                         mesh=None, axis: str = "d", device=None):
-    """Returns (extract_fn, step_fn):
-
-    - extract_fn(img_stack (B, k, H, W)) → OrbFeatures with (B, k) axes,
-      the B·k frames in one batched extraction;
-    - step_fn(pose_b (B, 3), last_odom_b (B, 3), feats_bk, odo_bk (B, k, 3))
-      → (poses (B, k, 3), tracked (B, k) bool).
-
-    Poses live in the map's gauge; odometry readings are raw, only their
-    increments matter. ``device=None`` means CUDA; the map moves there."""
-    if mesh is not None:
-        raise _no_mesh()
-    dev = resolve_device(device)
+def _localizer(cfg: SystemConfig, ms: MapState, min_tracked_matches: int, dev):
+    """The fleet localizer's two functions on one device."""
     ms = MapState(*(t.to(dev) for t in ms))
     orb_cfg = OrbConfig(height=cfg.height, width=cfg.width, n_features=cfg.cap.n_features,
                         scale_factor=cfg.scale_factor, n_levels=cfg.max_level)
@@ -48,7 +41,7 @@ def make_fleet_localizer(cfg: SystemConfig, ms: MapState, min_tracked_matches: i
     batch_extract = make_batch_extractor(orb_cfg, cam, undistort, device=dev)
 
     def extract_fn(img_stack):
-        img_stack = torch.as_tensor(img_stack)
+        img_stack = torch.as_tensor(img_stack).to(dev)
         B, k = img_stack.shape[:2]
         feats = batch_extract(img_stack.reshape((B * k,) + tuple(img_stack.shape[2:])))
         return type(feats)(*(x.reshape((B, k) + tuple(x.shape[1:])) for x in feats))
@@ -65,3 +58,22 @@ def make_fleet_localizer(cfg: SystemConfig, ms: MapState, min_tracked_matches: i
         return step_b(f32(pose_b), f32(last_odom_b), feats_bk, f32(odo_bk))
 
     return extract_fn, step_fn
+
+
+def make_fleet_localizer(cfg: SystemConfig, ms: MapState, min_tracked_matches: int = 10,
+                         mesh=None, axis: str = "d", device=None):
+    """Returns (extract_fn, step_fn):
+
+    - extract_fn(img_stack (B, k, H, W)) → OrbFeatures with (B, k) axes,
+      the B·k frames in one batched extraction;
+    - step_fn(pose_b (B, 3), last_odom_b (B, 3), feats_bk, odo_bk (B, k, 3))
+      → (poses (B, k, 3), tracked (B, k) bool).
+
+    Poses live in the map's gauge; odometry readings are raw, only their
+    increments matter. ``device=None`` means CUDA; the map moves there.
+    With ``mesh`` both functions take batched values or ``ShardedFleet``s
+    and return ``ShardedFleet``s, block i's robots on its device."""
+    if mesh is None:
+        return _localizer(cfg, ms, min_tracked_matches, resolve_device(device))
+    fns = per_block(mesh, lambda d: _localizer(cfg, ms, min_tracked_matches, d))
+    return tuple((lambda *a, j=j: run_blocks(mesh, [f[j] for f in fns], *a)) for j in range(2))

@@ -44,16 +44,26 @@ poses, frame for frame):
 Every tracked frame's RANSAC noise is drawn once, in frame order, by
 ``_draw_noise`` (``tracking.draw_track_noise`` from ``generator``, or the
 ``track_noise`` callable), whichever feed runs it. The JAX package's
-deferred mirror of the reference keyframe and its staged loop stage serve
-its asynchronous mapping; the port runs the fused loop stage inside the
-insertion, in the synchronous order, so its feeds carry neither. Both
-``async_mapping`` values run that one order.
+deferred mirror of the reference keyframe serves its asynchronous mapping
+over a remote chip; the port reads the mirror at the insertion. Without a
+mesh the port runs the fused loop stage inside the insertion, in the
+synchronous order, for both ``async_mapping`` values.
+
+On a device mesh (``mesh=``, ``parallel.make_mesh``) the global stage runs
+distributed (the loop closer's split BoW bank, the edge-sharded pose graph,
+the map-block partitioned joint GBA with K3 on each block) and staged, as
+the JAX package's mesh path: with ``async_mapping`` an insertion only
+dispatches the stage's detection (``LoopCloser.start_async``) and starts
+the copy of its values; each later control read advances the stage by one
+step (``_advance_loop``), and a closure that lands re-bases the live
+tracking gauge on the corrected reference keyframe (``_rebase_gauge``).
+The next insertion, a relief, ``save_map`` and the trajectory outputs
+finish a pending stage first. Without ``async_mapping`` the stage runs to
+completion inside the insertion. Tracking and the local window stay on the
+system's device, which must be the mesh's first.
 
 ``host_reads`` counts the control reads: one per decision read (a frame, a
 chunk segment, a resolved in-flight frame) and one per keyframe insertion.
-
-Not ported yet, and raising ``NotImplementedError``: a device mesh
-(``ROADMAP.md`` §1, item 20).
 """
 from __future__ import annotations
 
@@ -66,7 +76,7 @@ import torch
 
 from . import localmap, tracking
 from .config import SystemConfig
-from .device import resolve_device
+from .device import resolve_device, same_device
 from .frontend.orb import OrbConfig, OrbExtractor, OrbFeatures
 from .io.mapstorage import load_map, save_map as _save_map
 from .io.trajectory import save_trajectory
@@ -104,11 +114,6 @@ def _np_se2_compose(a, rel):
     )
 
 
-def _not_in_slice(what: str, where: str):
-    return NotImplementedError(
-        f"se2lam_tpu_torch: {what} is not ported yet ({where} of ROADMAP.md §1)")
-
-
 class SlamSystem:
     """Monocular + wheel-odometry SE(2) SLAM engine, synchronous feed::
 
@@ -126,15 +131,24 @@ class SlamSystem:
     ``enable_loops=False`` turns the whole global stage off;
     ``detect_loops=False`` keeps feature edges and the renewal GlobalBA
     but detects no loops (the faithful loop-ablated configuration).
+    ``mesh``: a ``parallel.mesh.Mesh`` whose first block is ``device``;
+    the global stage runs distributed over it (module docstring).
     """
 
     def __init__(self, cfg: SystemConfig, enable_loops: bool = True, mesh=None,
                  async_mapping: bool = True, detect_loops: bool = True,
                  device=None, generator: torch.Generator | None = None):
-        if mesh is not None:
-            raise _not_in_slice("the distributed mode (mesh)", "slice 5, item 20")
         self.cfg = cfg
         self.device = resolve_device(device)
+        if mesh is not None and not same_device(mesh.devices[0], self.device):
+            raise ValueError(f"the mesh's first block {mesh.devices[0]} is not the "
+                             f"system's device {self.device}")
+        self.mesh = mesh
+        self.async_mapping = async_mapping
+        # the staged loop stage of the mesh path: the pending record of
+        # LoopCloser.start_async/advance and the copy of its values
+        self._loop_pending = None
+        self._loop_copy = None
         self.orb_cfg = OrbConfig(
             height=cfg.height, width=cfg.width, n_features=cfg.cap.n_features,
             scale_factor=cfg.scale_factor, n_levels=cfg.max_level,
@@ -176,8 +190,8 @@ class SlamSystem:
         self.mp_compactions = 0
         self.mp_culled_weak = 0
         self.mp_slots_reclaimed = 0
-        self._loop_closer = (LoopCloser(cfg, detect_loops=detect_loops, device=self.device)
-                             if enable_loops else None)
+        self._loop_closer = (LoopCloser(cfg, detect_loops=detect_loops, device=self.device,
+                                        mesh=mesh) if enable_loops else None)
         self.track_noise = None
         self.host_reads = 0
         # pipelined per-frame feed: in-flight [feats, odo, noise, ts_new,
@@ -355,6 +369,9 @@ class SlamSystem:
         trajectory append."""
         self._frame_anchors.append(
             (self.frame_id, self._ref_kf_host, _np_se2_minus(pose, self._ref_pose_host)))
+        # a pending loop stage advances one step on this read (after the
+        # anchor, which pairs with the reference this frame was tracked on)
+        self._advance_loop()
         if need_kf:
             self._keyframe_decision(n_kf, n_mp, feats, odo)
         self.trajectory.append((self.frame_id, pose))
@@ -381,6 +398,8 @@ class SlamSystem:
             self._insert_keyframe(feats, odo)
 
     def _insert_keyframe(self, feats: OrbFeatures, odo):
+        # the last keyframe's staged loop stage lands before this one
+        self._finish_loop_pending()
         cfg, ts = self.cfg, self.ts
         # protect: the outgoing tracking reference — recent frames'
         # anchors point at it
@@ -394,11 +413,18 @@ class SlamSystem:
         self.timings["insert"] = time.perf_counter() - t0
         lc = self._loop_closer
         if lc is not None:
-            # the closure (if any) lands before tracking reseeds on the new
-            # keyframe, in both async_mapping modes
             t0 = time.perf_counter()
-            self.ms = lc.on_new_kf_fused(self.ms, k)
-            view_mp, obs_mask = localmap.kf_track_seed(self.ms, k)
+            if lc._dist and self.async_mapping:
+                # mesh path: dispatch the staged stage's detection; its
+                # values ride the next control reads (_advance_loop)
+                self._loop_pending = lc.start_async(self.ms, k)
+                self._loop_copy = host_prefetch(*self._loop_pending["want"])
+            else:
+                # the closure (if any) lands before tracking reseeds on the
+                # new keyframe
+                self.ms = (lc.on_new_kf(self.ms, k) if lc._dist
+                           else lc.on_new_kf_fused(self.ms, k))
+                view_mp, obs_mask = localmap.kf_track_seed(self.ms, k)
             self.timings["loop"] = time.perf_counter() - t0
 
         # reset tracking against the (BA-refined) new reference KF
@@ -450,6 +476,39 @@ class SlamSystem:
             label=f"f{fid} kf{len(self.kf_frame_ids)}")
         viz.plot_map(os.path.join(self._viz_dir, f"map_{fid:05d}.png"), self.ms,
                      title=f"map @ frame {fid}")
+
+    # -- the staged loop stage of the mesh path --
+
+    def _advance_loop(self, block: bool = False):
+        """Advance the pending loop stage: one step on its values (copied
+        since its dispatch), the next step's copy started; ``block`` runs
+        it to completion. A closure re-bases the tracking gauge."""
+        lc = self._loop_closer
+        while self._loop_pending is not None:
+            self.ms, self._loop_pending, closed = lc.advance(self.ms, self._loop_pending,
+                                                             self._loop_copy.get())
+            self._loop_copy = (host_prefetch(*self._loop_pending["want"])
+                               if self._loop_pending is not None else None)
+            if closed:
+                self._rebase_gauge()
+            if not block:
+                return
+
+    def _finish_loop_pending(self):
+        self._advance_loop(block=True)
+
+    def _rebase_gauge(self):
+        """A global correction moved the reference keyframe: the live
+        tracking state moves with it (the reference's Track reads the map
+        pose GlobalBA wrote, src/GlobalMapper.cpp:496-531); the rest of the
+        state is relative to the reference camera."""
+        ts = self.ts
+        if ts is None:
+            return
+        new_ref = self.ms.kf_pose[ts.ref_kf_idx.long()]
+        self.ts = ts._replace(ref_pose=new_ref,
+                              cur_pose=se2.compose(new_ref, se2.minus(ts.cur_pose, ts.ref_pose)))
+        self._ref_pose_host = self._read(new_ref)[:3].copy()
 
     # -- pipelined per-frame feed --
 
@@ -631,12 +690,14 @@ class SlamSystem:
                         self._last_img = imgs[fire]
                     feats_j = tracking.chunk_frame(feats_stack, fire)
                     self.ts = tracking.state_at_step(self.ts, feats_j, steps, fire)
+                    self._advance_loop()
                     self._keyframe_decision(n_kf, n_mp, feats_j, odo_stack[fire])
                 self.trajectory.append((self.frame_id, pose))
                 self.frame_id += 1
                 poses_out.append(pose)
             if fire is None:
                 self.ts = ts_f
+                self._advance_loop()
                 break
             i = fire + 1
         return poses_out
@@ -703,6 +764,8 @@ class SlamSystem:
         live count is 1/8 of the bank below the cap, then renumber the map
         and every host-side slot reference. ``at_capacity`` when nothing
         was freed: mapping pauses, tracking coasts on odometry."""
+        # a pending loop stage holds slot ids: it lands first
+        self._finish_loop_pending()
         cfg = self.cfg
         target = cfg.cap.max_kfs - max(1, cfg.cap.max_kfs // 8)
         # the live count: holes left by per-insert pruning may suffice
@@ -740,6 +803,7 @@ class SlamSystem:
         cull the weakest points down to a low-water mark (at least one
         insertion's worth plus 1/8 of the bank, floored at M/4). Point slots
         have no host-side references, so nothing is remapped."""
+        self._finish_loop_pending()       # it holds point-table views
         cfg = self.cfg
         M = cfg.cap.max_mps
         target = max(M // 4, M - max(cfg.cap.n_features, M // 8))
@@ -808,6 +872,7 @@ class SlamSystem:
 
     def kf_trajectory(self) -> np.ndarray:
         """(nKF, 5) rows of [idKF, x, y, z, yaw] in the reference format."""
+        self._finish_loop_pending()
         n = int(self.ms.n_kf)
         poses = self.ms.kf_pose[:n].cpu().numpy()
         valid = self.ms.kf_valid[:n].cpu().numpy()
@@ -825,6 +890,7 @@ class SlamSystem:
         keyframes; the loop closer adopts it), when ``with_vocab``; and
         ``se2lam_kf_trajectory.txt`` beside it. Returns the saved
         vocabulary, or None."""
+        self._finish_loop_pending()
         ms, lc = self.ms, self._loop_closer
         vocab = lc.vocab if lc is not None else None
         if vocab is None and with_vocab and self.n_keyframes() >= 2:
@@ -844,6 +910,7 @@ class SlamSystem:
         """(n, 4) [frame_id, x, y, theta]: every frame's pose re-anchored on
         its reference keyframe's CURRENT estimate, so past frames gain from
         local BA after the fact."""
+        self._finish_loop_pending()       # a pending closure lands first
         kf_pose = self.ms.kf_pose.cpu().numpy()
         anchors = {fid: (ref, rel) for fid, ref, rel in self._frame_anchors}
         out = []
@@ -863,6 +930,7 @@ class SlamSystem:
                 f.write(f"{fid},{p[0]:.6f},{p[1]:.6f},{p[2]:.6f}\n")
 
     def n_keyframes(self) -> int:
+        self._finish_loop_pending()
         return int(self.ms.n_kf)
 
     def n_map_points(self) -> int:

@@ -596,3 +596,54 @@ def test_merge_on_card_runs_the_joint_gba_through_the_kernel(card):
     assert set(seen) == {(cfg.cap.max_kfs, cfg.cap.max_mps)}
     assert int(merged.n_kf) == sum(int(m.kf_valid.sum()) for m in maps)
     assert info["mps_fused"] >= 1 and bool(torch.isfinite(merged.kf_pose).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K,M", [(64, 512), (256, 2048), (64, 1024), (16, 257)])
+def test_schur_kernel_at_mesh_block_shapes(card, K, M):
+    """K3 at the per-block shapes the mesh path launches (a point block of
+    (K, ⌈M/n⌉), odd ones too: ``partition_points`` pads M to n·⌈M/n⌉):
+    within 1e-5 of the f64 plain version, the same bits twice."""
+    Hpx, Hxx_inv = (a.to(card) for a in _schur_inputs(K, M, seed=2))
+    got = K3.point_reduction(Hpx, Hxx_inv)
+    again = K3.point_reduction(Hpx, Hxx_inv)
+    want = K3.point_reduction_plain(Hpx.double(), Hxx_inv.double())
+    torch.cuda.synchronize()
+    assert float((got.double() - want).abs().max() / want.abs().max()) <= 1e-5
+    assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+def test_mesh_of_four_blocks_on_one_card_matches_one_block(card):
+    """``sharded_solve_local_ba`` on ``make_mesh(4, device="cuda")``: one K3
+    launch per block per LM step, at (K, M/4), and the solution within the
+    JAX tests' tolerances of the 1-block solve (poses 5e-4, points 2e-3)."""
+    from se2lam_tpu_torch.parallel import make_mesh, sharded_solve_local_ba
+
+    cfg, _ = default_cfg()
+    c = tracking.constants(cfg, card)
+    K, M, P, iters = 16, 512, 6, 6
+    prob, _ = ba.synthetic_grid_ba(np.random.default_rng(4), K, M, P, c["cam"], c["Tcb"])
+    ba_cfg = ba.BAConfig(iters=iters)
+    out, seen = {}, []
+    orig = ba.schur_reduce
+
+    def spy(Hpp, bp, Hpx, Hxx_inv, bx):
+        seen.append((Hpx.shape[0], Hpx.shape[2], Hpx.device.type))
+        return orig(Hpp, bp, Hpx, Hxx_inv, bx)
+
+    ba.schur_reduce = spy
+    try:
+        for n in (1, 4):
+            before = K3.point_reduction.launches
+            out[n] = sharded_solve_local_ba(prob, c["cam"], c["Tcb"], ba_cfg,
+                                            make_mesh(n, device="cuda"))
+            torch.cuda.synchronize()
+            assert K3.point_reduction.launches == before + n * iters
+    finally:
+        ba.schur_reduce = orig
+    assert set(seen) == {(K, M, "cuda"), (K, M // 4, "cuda")}
+    (p1, x1, i1), (p4, x4, i4) = out[1], out[4]
+    assert float(i4["chi2"]) < 1e-3 * float(i4["chi2_init"])
+    torch.testing.assert_close(p4, p1, rtol=0, atol=5e-4)
+    torch.testing.assert_close(x4, x1, rtol=0, atol=2e-3)

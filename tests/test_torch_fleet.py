@@ -17,7 +17,11 @@
   robot alone through the same fleet step at B = 1 and through
   ``tracking.track_frame`` (poses within 1e-5, the JAX test's tolerance;
   decisions and match counts equal).
-- A mesh raises ``NotImplementedError``.
+- On a mesh (``make_mesh(n, device="cpu")``): ``shard_fleet`` cuts the
+  robot axis into the blocks (and refuses a mesh that does not divide
+  the fleet), and the tracker's robots, each block stepping its own, are
+  bitwise the same robots without a mesh; a mesh whose first block is not
+  the system's device is refused.
 - The rewrites that let ``torch.vmap`` batch the fleets
   (``inv_psd_small``'s identity and ``preintegrate_se2``'s ``Ak``/``Bk``
   made from the input, ``_covis_kf_count``'s ``seen`` and the projection
@@ -42,7 +46,9 @@ from se2lam_tpu_torch.entry import default_cfg
 from se2lam_tpu_torch.frontend import orb as torb
 from se2lam_tpu_torch.frontend import windowed_match as W
 from se2lam_tpu_torch.kernels.samples import k2_robot_inputs
-from se2lam_tpu_torch.parallel import make_fleet_localizer, make_fleet_tracker, shard_fleet
+from se2lam_tpu_torch.parallel import (
+    Mesh, ShardedFleet, make_fleet_tracker, make_mesh, shard_fleet,
+)
 from se2lam_tpu_torch.system import SlamSystem
 
 from test_fleet import fleet_cfg
@@ -147,17 +153,41 @@ def test_fleet_tracker_matches_jax_and_each_robot():
 
 
 def test_mesh_raises_not_implemented():
+    """The mesh is ported: what raises now is a mesh that cannot hold the
+    fleet (its blocks do not divide the robots) and a mesh whose first
+    block is not the system's device."""
     cfg, _ = default_cfg(**SMALL)
-    with pytest.raises(NotImplementedError, match="item 20"):
-        make_fleet_tracker(cfg, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 20"):
-        make_fleet_localizer(cfg, None, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 20"):
-        shard_fleet({}, object())
-    with pytest.raises(NotImplementedError, match="item 20"):
-        SlamSystem(cfg, mesh=object(), device="cpu")
+    mesh = make_mesh(2, device="cpu")
+    sf = shard_fleet(torch.arange(6.0).reshape(6, 1), mesh)
+    assert [b.shape[0] for b in sf.blocks] == [3, 3]
+    assert torch.equal(sf.gather(), torch.arange(6.0).reshape(6, 1))
+    with pytest.raises(ValueError, match="do not divide"):
+        shard_fleet(torch.zeros(3, 2), mesh)
+    with pytest.raises(ValueError, match="first block"):
+        SlamSystem(cfg, mesh=Mesh([torch.device("meta")] * 2), device="cpu")
+    assert SlamSystem(cfg, mesh=mesh, device="cpu")._loop_closer._dist
 
 
+def test_fleet_tracker_on_a_mesh_matches_no_mesh():
+    jcfg, joc = fleet_cfg()
+    cfg = config_from_fields(dataclasses.asdict(jcfg))
+    oc = torb.OrbConfig(**{k: getattr(joc, k) for k in torb.OrbConfig._fields})
+    B, T = 4, 3
+    imgs, odos = _streams(jcfg, B, T)
+    gen = torch.Generator().manual_seed(0)
+    noise = torch.stack([tracking.draw_track_noise(gen, cfg) for _ in range(B)])
+    plain = make_fleet_tracker(cfg, oc, device="cpu")
+    meshed = make_fleet_tracker(cfg, oc, mesh=make_mesh(2, device="cpu"))
+    ts = plain[0](plain[2](imgs[:, 0]), odos[:, 0], odos[:, 0])
+    tm = meshed[0](meshed[2](imgs[:, 0]), odos[:, 0], odos[:, 0])
+    assert isinstance(tm, ShardedFleet) and len(tm.blocks) == 2
+    for t in range(1, T + 1):
+        ts, r = plain[1](ts, imgs[:, t], odos[:, t], noise)
+        tm, rm = meshed[1](tm, imgs[:, t], odos[:, t], noise)
+        for a, b in zip(r, rm.gather()):
+            assert torch.equal(a, b)
+        for a, b in zip(ts.match_idx, tm.gather().match_idx):
+            assert torch.equal(a, b)
 # --- the rewrites that let torch.vmap batch the fleets: each against the
 # in-place formulation it replaced, on unbatched inputs, bitwise
 

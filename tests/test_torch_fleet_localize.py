@@ -10,6 +10,9 @@ SLAM, saved with its vocabulary; a second traversal with noisy odometry).
   robots x k = 5 frames (starts 15, 21, 27), on JAX's features, and
   against each robot alone (``_localize_chunk`` and the per-frame
   tracked path);
+- each robot of the B = 3 fleet bitwise the same robot in a fleet of one
+  (the pose-only solve's sums in a fixed order under ``torch.vmap``), and
+  the fleet cut over a 3-block CPU mesh bitwise the fleet without one;
 - ``Localizer.process_chunk`` and ``process_async`` (depths 0 and 3)
   against ``process`` on rendered frames from a cold start, with and
   without a blackout of two frames mid-stream (the pattern of
@@ -33,7 +36,7 @@ from se2lam_tpu.parallel import make_fleet_localizer as jax_fleet_localizer
 from se2lam_tpu_torch import localizer as tloc
 from se2lam_tpu_torch.io import load_map as tload
 from se2lam_tpu_torch.io.synthetic import SyntheticWorld
-from se2lam_tpu_torch.parallel import make_fleet_localizer
+from se2lam_tpu_torch.parallel import ShardedFleet, make_fleet_localizer, make_mesh
 from se2lam_tpu_torch.tracking import chunk_frame
 
 from test_torch_localizer import START, _port_feats, fixture, jax_reloc_noise  # noqa: F401
@@ -98,6 +101,27 @@ def test_fleet_localizer_matches_jax_and_each_robot(fixture):
         upto = tt[b].tolist().index(False) if not bool(tt[b].all()) else K
         for j in range(upto):
             np.testing.assert_allclose(out[j], tp[b, j].numpy(), rtol=0, atol=1e-3)
+
+
+def test_fleet_robot_is_bitwise_itself_alone_and_on_a_mesh(fixture):
+    fx = fixture
+    tms, _, _ = tload(fx["path"], device="cpu")
+    tf = _port_feats(_stack([_stack([fx["feats"][o + j] for j in range(K)]) for o in OFFS]))
+    odo = torch.from_numpy(np.stack([np.stack([fx["odo"][o + j] for j in range(K)])
+                                     for o in OFFS]))
+    pose0 = torch.from_numpy(np.stack([fx["gt_map"][o - 1] for o in OFFS]).astype(np.float32))
+    last0 = torch.from_numpy(np.stack([fx["odo"][o - 1] for o in OFFS]))
+    _, step = make_fleet_localizer(fx["tcfg"], tms, device="cpu")
+    tp, tt = step(pose0, last0, tf, odo)
+    assert int(tt.sum()) >= B * K - 2
+    for b in range(B):
+        fb = type(tf)(*(a[b:b + 1] for a in tf))
+        p1, t1 = step(pose0[b:b + 1], last0[b:b + 1], fb, odo[b:b + 1])
+        assert torch.equal(p1[0], tp[b]) and torch.equal(t1[0], tt[b]), b
+    _, mstep = make_fleet_localizer(fx["tcfg"], tms, mesh=make_mesh(B, device="cpu"))
+    mp, mt = mstep(pose0, last0, tf, odo)
+    assert isinstance(mp, ShardedFleet) and len(mp.blocks) == B
+    assert torch.equal(mp.gather(), tp) and torch.equal(mt.gather(), tt)
 
 
 @pytest.fixture(scope="module")

@@ -31,6 +31,10 @@ import se2lam_tpu_torch.solver.posegraph
 import se2lam_tpu_torch.utils, se2lam_tpu_torch.utils.chunking, se2lam_tpu_torch.utils.prefetch
 import se2lam_tpu_torch.parallel, se2lam_tpu_torch.parallel.fleet
 import se2lam_tpu_torch.parallel.fleet_localize
+import se2lam_tpu_torch.parallel.mesh, se2lam_tpu_torch.parallel.runtime
+import se2lam_tpu_torch.parallel.dist_ba, se2lam_tpu_torch.parallel.dist_posegraph
+import se2lam_tpu_torch.parallel.dist_loop
+from se2lam_tpu_torch.entry import dryrun_multichip
 import se2lam_tpu_torch.mapmerge, se2lam_tpu_torch.viz, se2lam_tpu_torch.utils.timing
 import se2lam_tpu_torch.io.dataset, se2lam_tpu_torch.io.native_loader
 import se2lam_tpu_torch.io.liveserver
@@ -196,6 +200,21 @@ def _run_dataset_driver():
         run_dataset.main(["--synthetic", "--frames", "1", "--out", d])
 
 
+def _make_mesh():
+    from se2lam_tpu_torch.parallel import make_mesh
+    make_mesh(2)
+
+
+def _dryrun_multichip():
+    from se2lam_tpu_torch.entry import dryrun_multichip
+    dryrun_multichip(2)
+
+
+def _init_distributed():
+    from se2lam_tpu_torch.parallel import runtime
+    runtime.init_distributed("127.0.0.1:1", 1, 0)
+
+
 def _serve_live_driver():
     from se2lam_tpu_torch.drivers.serve_live import make_system
     from se2lam_tpu_torch.entry import default_cfg
@@ -206,12 +225,14 @@ def _serve_live_driver():
                                   _slam_system, _default_slam_system, _loop_closer,
                                   _localizer, _load_map, _batch_extractor, _fleet_tracker,
                                   _fleet_localizer, _merge_maps, _merge_many, _measure_rtt,
-                                  _run_dataset_driver, _serve_live_driver],
+                                  _run_dataset_driver, _serve_live_driver, _make_mesh,
+                                  _dryrun_multichip, _init_distributed],
                          ids=["entry", "extractor", "camera", "convert", "empty_map",
                               "slam_system", "default_slam_system", "loop_closer",
                               "localizer", "load_map", "batch_extractor", "fleet_tracker",
                               "fleet_localizer", "merge_maps", "merge_many", "measure_rtt",
-                              "run_dataset_driver", "serve_live_driver"])
+                              "run_dataset_driver", "serve_live_driver", "make_mesh",
+                              "dryrun_multichip", "init_distributed"])
 def test_device_none_means_cuda_and_raises_without_it(make):
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: device=None runs there")

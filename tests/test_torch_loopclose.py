@@ -322,6 +322,33 @@ def test_joint_problem_and_ba_match_jax(lap):
     assert np.quantile(d, 0.95) < 1e-3 * scale
 
 
+def test_global_bas_on_a_mesh_match_jax(lap):
+    """The mesh path's GlobalBA (edge-sharded PCG, cg_iters = K) and joint
+    GBA (map-block partitioned, 8 blocks) at the closure, against the JAX
+    package's on its 8 CPU devices: the pose graph within 1e-4 of JAX's
+    distributed one and 1e-3 of the port's dense one, the joint GBA with
+    ``test_joint_problem_and_ba_match_jax``'s tolerances."""
+    from se2lam_tpu.parallel import make_mesh as jmesh
+    from se2lam_tpu_torch.parallel import make_mesh
+
+    r, tms, tcfg = _closure_inputs(lap)
+    cfg = lap["cfg"]
+    mesh, jm = make_mesh(8, device="cpu"), jmesh(8)
+    jms, _ = jlc.run_global_ba_dist(r["ms"], jm, iters=15, huber=cfg.gm_pg_huber)
+    tms2, _ = tlc.run_global_ba_dist(tms, mesh, iters=15, huber=tcfg.gm_pg_huber)
+    dense, _ = tlc.run_global_ba(tms, iters=15, huber=tcfg.gm_pg_huber)
+    np.testing.assert_allclose(tms2.kf_pose.numpy(), np.asarray(jms.kf_pose), rtol=0, atol=1e-4)
+    np.testing.assert_allclose(tms2.kf_pose.numpy(), dense.kf_pose.numpy(), rtol=0, atol=1e-3)
+    jms, jinfo = jlc.run_global_ba_joint_dist(r["ms"], cfg, jm, iters=cfg.gm_joint_ba_iters)
+    tms3, tinfo = tlc.run_global_ba_joint_dist(tms, tcfg, mesh, iters=tcfg.gm_joint_ba_iters)
+    assert int(tinfo["n_obs_dropped"]) == 0
+    assert float(tinfo["chi2"]) <= float(tinfo["chi2_init"])
+    np.testing.assert_allclose(float(tinfo["chi2"]), float(jinfo["chi2"]), rtol=1e-3)
+    np.testing.assert_allclose(tms3.kf_pose.numpy(), np.asarray(jms.kf_pose), rtol=0, atol=2e-3)
+    d = np.abs(tms3.mp_pos.numpy() - np.asarray(jms.mp_pos)).max(1)
+    assert np.quantile(d, 0.95) < 1e-3 * np.abs(np.asarray(jms.mp_pos)).max()
+
+
 def _jax_stage_noise(r, cfg):
     return _stage_gumbel(r["key"], cfg.cap.ransac_trials, cfg.cap.n_features)
 

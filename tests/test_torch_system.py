@@ -26,6 +26,7 @@ from se2lam_tpu.io import SyntheticWorld, ate_se2 as jax_ate
 from se2lam_tpu.system import SlamSystem as JaxSlam
 from se2lam_tpu_torch.convert import config_from_fields
 from se2lam_tpu_torch.io.trajectory import ate_se2, load_trajectory
+from se2lam_tpu_torch.parallel import Mesh, make_mesh
 from se2lam_tpu_torch.system import SlamSystem
 
 from test_torch_localmap import lap_cfg
@@ -128,7 +129,9 @@ def test_default_system_closes_the_revisit_lap():
 def test_feeds_of_later_slices_raise(feed):
     """The feeds of slice 5 run now and give ``process``'s poses on the
     lap's first 6 frames (the whole feeds are held in
-    tests/test_torch_chunked.py); what still raises is the mesh."""
+    tests/test_torch_chunked.py); the mesh runs too (tests/
+    test_torch_dist_system.py): what raises is a mesh whose first block is
+    not the system's device."""
     cfg = config_from_fields(dataclasses.asdict(lap_cfg()))
     world = SyntheticWorld(cfg, n_landmarks=500, room=10.0, seed=4)
     seq = list(world.sequence(6, noise=(0.004, 0.002, 0.002)))
@@ -145,8 +148,10 @@ def test_feeds_of_later_slices_raise(feed):
                            s.process_chunk_async(imgs[1:], odos[1:]), s.flush_chunk_async())
                if r is not None for p in r]
     np.testing.assert_array_equal(np.asarray(got), np.asarray(want))
-    with pytest.raises(NotImplementedError, match="item 20"):
-        SlamSystem(cfg, mesh=object(), device="cpu")
+    with pytest.raises(ValueError, match="first block"):
+        SlamSystem(cfg, mesh=Mesh([torch.device("meta")] * 2), device="cpu")
+    m = SlamSystem(cfg, mesh=make_mesh(2, device="cpu"), device="cpu")
+    assert m.mesh.size == 2 and m._loop_closer._dist
 
 
 def test_capacity_pressure_compacts():
