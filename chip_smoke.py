@@ -26,12 +26,12 @@ a nonzero exit if it fails:
    and the keyframe timing;
 6. Schur kernel against plain: the Schur point-reduction kernel against
    its plain PyTorch version (the einsum pair) on random SPD systems at
-   (K, M) = (4, 12), (8, 130), (24, 512), (48, 2048), (256, 8192), on
-   zeroed point columns (from mid-chunk and from a chunk boundary: the
-   same bits as the shorter call), and S bitwise symmetric outside its
-   diagonal 3x3 blocks; times it, the plain version and one
+   (K, M) = (2, 130), (2, 1000), (4, 12), (8, 130), (24, 512), (48, 2048),
+   (256, 8192), on zeroed point columns (from mid-chunk and from a chunk
+   boundary: the same bits as the shorter call), and S bitwise symmetric
+   outside its diagonal 3x3 blocks; times it, the plain version and one
    ``torch.einsum`` call, each in a CUDA graph and eagerly, at the
-   local-BA and global-BA shapes;
+   mini-BA (2, 1000), local-BA and global-BA shapes;
 7. mapping: the synchronous SLAM loop, ``SlamSystem(cfg,
    enable_loops=False)`` at the bench configuration with the default
    ``Capacity``, over 60 frames of the bench world with noisy odometry,
@@ -40,7 +40,8 @@ a nonzero exit if it fails:
    (K, M) = (48, 2048)) on the card. Checks the launches of all three
    kernels, that every local BA descends, finite poses, the
    keyframe count and ATE against the JAX package's spread, and the
-   Schur kernel on the damped system of a real local BA of the run;
+   Schur kernel on the damped system of a real local BA of the run
+   (``real_schur_check``);
 8. localization: the counted SLAM run's map saved with ``save_map`` and
    loaded back (every field and the vocabulary bitwise); the windowed
    top-2 kernel against its plain version, exact on all four outputs, at
@@ -66,8 +67,8 @@ a nonzero exit if it fails:
    inside the JAX package's spread; every launch of the three kernels is
    counted, the Schur kernel's at the local-BA and the joint-GBA shapes
    (256, 8192); the Schur kernel on the joint GBA's real damped system
-   against its plain version in f64, beside the f32 einsum's error on the
-   same inputs, and its times there; loop-stage (and within it the
+   (``real_schur_check``), and its times there; the first closure's
+   verification inputs are kept for phase 23; loop-stage (and within it the
    verifications' and pose-only solves'), pose-graph, joint-GBA and
    vocabulary-training times;
 11. capacity relief: the same scene and configuration, loops on, with the
@@ -165,7 +166,19 @@ a nonzero exit if it fails:
    phase's JAX spread, a loop closed, every kernel's launches (K3: the
    local BAs' plus 4 a joint-GBA step), each block of the first joint GBA
    on its real damped system in f64 (block 0 timed beside the einsum and
-   its bound), frames/s beside the single-device loop phase's.
+   its bound), frames/s beside the single-device loop phase's;
+23. slice 8: the 2-KF mini-BA constraint
+   (``loopclose.build_loop_constraint_ba``) on the loop phase's first
+   closure beside the pose-only one: 10 Schur launches at (2, N), the
+   kernel on its first damped system, the relative pose bitwise the
+   optimized poses' ``se2.minus``, a symmetric information with clamped
+   eigenvalues, the same call on the CPU within MINI_BA_*, its ms;
+   ``localmap.remove_outlier_obs`` on the saved mapping map, clean and
+   with one point moved 5 m: the victim gone and killed, the tables
+   consistent and bitwise the CPU's; the extractor with Harris rescoring
+   on 4 bench frames: every output but ``response`` bitwise the output
+   without it, ``forward_batch`` bitwise ``forward``, the same K1
+   launches, ``response`` within HARRIS_RTOL of the CPU's.
 In the child of phases 13-14 also the runtime: ``parallel.runtime`` over
 NCCL at world size 1 holding the 4 blocks, whose psum and distributed pose
 graph equal the in-process mesh's bitwise (deterministic mode). Phases 15
@@ -175,7 +188,10 @@ each robot bitwise its fleet without a mesh.
 Every phase prints its seconds, and the run its total.
 
 The Schur kernel is held, on every system, to its plain version evaluated
-in f64 on the same f32 inputs (see ``schur_check``).
+in f64 on the same f32 inputs: random SPD systems within SCHUR_REL_TOL of
+max|S| (``schur_check``), real damped systems within SCHUR_ABS_REL_MAX of
+their products' magnitude sum, with a one-point control
+(``real_schur_check``).
 
 It prints the kernels' JSON line before the last line, and last
 ``{"ok": true, "device": {...}}``. Nothing of JAX is imported.
@@ -203,7 +219,7 @@ from se2lam_tpu_torch.drivers import run_dataset as run_dataset_driver
 from se2lam_tpu_torch.entry import default_cfg, dryrun_multichip, entry, session_cfg
 from se2lam_tpu_torch.frontend import fast_nms as K1
 from se2lam_tpu_torch.frontend import windowed_match as K2
-from se2lam_tpu_torch.frontend.orb import OrbExtractor
+from se2lam_tpu_torch.frontend.orb import OrbExtractor, OrbFeatures
 from se2lam_tpu_torch.io import (
     DatasetRoom, LiveClient, SlamServer, load_map, native_loader, save_map, write_dataset_room,
 )
@@ -239,8 +255,9 @@ N_DRAWS = 8        # RANSAC draws of the main path
 # Schur kernel: the JAX package's own kernel tolerance
 # (tests/test_pallas_schur.py), relative to the largest entry
 SCHUR_REL_TOL = 1e-5
-SCHUR_SHAPES = [(4, 12), (8, 130), (24, 512), (48, 2048), (256, 8192)]
+SCHUR_SHAPES = [(2, 130), (2, 1000), (4, 12), (8, 130), (24, 512), (48, 2048), (256, 8192)]
 SCHUR_ZERO_FROM = (65, 96)      # zeroed point columns of (8, 130): mid-chunk, chunk boundary
+MINI_BA_SHAPE = (2, 1000)       # (2 keyframes, n_features): the 2-KF mini-BA of slice 8
 LOCAL_BA_SHAPE = (48, 2048)     # (local_kfs + local_ref_kfs, local_mps), default Capacity
 GLOBAL_BA_SHAPE = (256, 8192)   # (max_kfs, max_mps): the loop-closing slice's joint BA
 MAP_FRAMES = 60
@@ -290,17 +307,15 @@ LOOP_DRAWS = 2
 JAX_LOOP_KF = (28, 29)
 JAX_LOOP_ATE_MAX = 0.031525466523794274
 JAX_LOOP_ATE_CORRECTED_MAX = 0.022268728356580062
-# the joint GBA's Schur check: the kernel's own error from the f64 plain
-# version on the same inputs, relative to max|S|. In the loop phase on an
-# H100 (700 W) the kernel has read 1.6e-7 to 1.11e-6; the f32 einsum's
-# error (printed beside it, with the ratio) wanders with the run's inputs
-# as much, so it sets no bound
-JOINT_SCHUR_REL_MAX = 2e-6
-# the Schur kernel on a block of the distributed local BA's real damped
-# system, against the sum of its products' magnitudes (block_schur_check):
-# two f32 roundings; the f32 einsum pair reads 1.3e-9 to 4.1e-9 of it on
-# the dry run's blocks (CPU)
+# the Schur kernel on every real damped system (a local BA's, a joint
+# GBA's, a point block's; real_schur_check): its error from the f64 plain
+# version against the sum of its products' magnitudes, two f32 roundings;
+# the f32 einsum pair reads 1.3e-9 to 4.1e-9 of it on the dry run's blocks
+# (CPU). Taking out the live point with the largest contribution must read
+# at least SCHUR_CONTROL_MIN times the bound under the same measure: the
+# measure still sees a sum that lost a point
 SCHUR_ABS_REL_MAX = 1.2e-7
+SCHUR_CONTROL_MIN = 10.0
 # capacity relief on the same scene: bank sizes at which both reliefs run
 # (examples/loop_draws.py, CPU)
 RELIEF_KFS, RELIEF_MPS, RELIEF_FRAMES = 16, 2048, 72
@@ -350,6 +365,24 @@ MERGE_B_ERR_MAX = 0.5          # tests/test_mapmerge.py:82
 JAX_MERGE_PAIR_FRAMES = ((43, 43), (35, 35), (39, 39))
 JAX_MERGE_ALIGN_MIN, JAX_MERGE_FUSED_MIN = 188, 56
 JAX_MERGE_B_ERR_MAX = 0.14142055809497833
+# slice 8: the 2-KF mini-BA constraint on the loop phase's first closure,
+# card against CPU in the same process. Over 6 fresh loop-scene maps on an
+# H100 (700 W; examples/torch_check_spread.py --mini-ba 5 and a
+# chip_smoke.py run) the gate kept the same pairs on both devices, the
+# relative pose moved up to 3.05e-4 (along the 2-view gauge direction: two
+# calls on the card differ by up to 1.5e-4) and the information up to
+# 6.95e-4 of its largest entry
+MINI_BA_ITERS = 10              # build_loop_constraint_ba's LM steps, a K3 launch each
+MINI_BA_N_GOOD_TOL = 1          # pairs whose chi2 gate may flip between the devices
+MINI_BA_MEAS_TOL = 1e-3         # the relative pose, m and rad
+MINI_BA_INFO_RTOL = 5e-3        # of max|info|
+# Harris rescoring on the card against the CPU, relative to max|R| on the
+# frame: level 0 is the same adds in the same order; the upper levels'
+# pixels differ in the last ulp through the pyramid's products. Read
+# 8.3e-8 to 1.12e-7 on the 4 frames (H100, 700 W)
+HARRIS_RTOL = 1e-6
+HARRIS_FRAMES = (0, 5, 10, 15)  # main-path frames of the bench world
+OUTLIER_SHIFT = (5.0, 5.0, 3.0)  # the JAX package's tests/test_outliers.py corruption
 
 
 def log(msg):
@@ -633,13 +666,10 @@ def spd_inverses(g, M, dev):
 
 
 def schur_check(Hpx, Hxx_inv, what):
-    """The kernel against the plain version on the same inputs, evaluated
-    in f64: within SCHUR_REL_TOL of its largest entry. On a real local BA,
-    Hxx⁻¹ reaches ~1e6 along weakly observed depth directions whose large
-    products cancel in S, so any f32 result, the f32 plain version's
-    included, sits a few 1e-6 of max|S| from the exact one; two f32
-    results then differ by up to their sum, which is why the reference is
-    the exact one. Returns (max |S − S_plain|, relative error)."""
+    """The kernel against the plain version on the same random SPD inputs,
+    evaluated in f64: within SCHUR_REL_TOL of its largest entry (these
+    systems do not cancel; real ones go through ``real_schur_check``).
+    Returns (max |S − S_plain|, relative error)."""
     got = K3.point_reduction(Hpx, Hxx_inv)
     want = K3.point_reduction_plain(Hpx.double(), Hxx_inv.double())
     torch.cuda.synchronize()
@@ -697,7 +727,7 @@ def phase_schur():
         + " of plain (f64); zero columns exact; off-diagonal blocks symmetric")
 
     times = {}
-    for K, M in (LOCAL_BA_SHAPE, GLOBAL_BA_SHAPE):
+    for K, M in (MINI_BA_SHAPE, LOCAL_BA_SHAPE, GLOBAL_BA_SHAPE):
         Hpx, Hxx_inv = inputs[(K, M)]
         bound, by = schur_bound(K, M)
         fns = dict(
@@ -822,18 +852,22 @@ def phase_mapping(cfg, world):
         raise SystemExit(f"chip_smoke: SLAM draws {bad} leave the JAX package's spread "
                          f"(keyframes {JAX_KF}, ATE <= {1.5 * JAX_ATE_MAX})")
 
-    # the Schur kernel on a real local-BA system: the window of the last
-    # keyframe on the final map, assembled and damped as the solver's
-    # first LM step does
+    real = real_schur_check(*local_ba_system(slam, cfg),
+                            f"the local BA of KF {slam._ref_kf_host}", times=False)
+    return slam, run, k1, k2, k3, real
+
+
+def local_ba_system(slam, cfg):
+    """(Hpx, Hxx⁻¹) of a real local BA: the window of the SLAM run's last
+    keyframe on its final map, assembled and damped as the solver's first
+    LM step does."""
+    dev = slam.ms.kf_pose.device
     c = tracking.constants(cfg, dev)
     win = localmap.build_local_ba(slam.ms, slam._ref_kf_host, cfg)
     cfg_ba = ba.BAConfig()
     _, _, Hpx, Hxx_inv, _, _ = ba.damped_system(
         win.prob, c["cam"], c["Tcb"], cfg_ba, torch.tensor(cfg_ba.lm_init_lambda, device=dev))
-    err, rel = schur_check(Hpx, Hxx_inv, f"the local BA of KF {slam._ref_kf_host}")
-    log(f"kernel: Schur on a real local BA {tuple(Hpx.shape)}: max |diff| {err}, "
-        f"relative {rel} of plain (f64)")
-    return slam, run, k1, k2, k3, err
+    return Hpx, Hxx_inv
 
 
 def k2_check(args, what):
@@ -1260,7 +1294,7 @@ def phase_loop(world):
     ba.schur_reduce = reduce_spy
     try:
         with Counted(localmap, "match_by_projection_streamed") as im, \
-                Counted(loopclose, "run_global_ba_joint") as joint_in:
+                first_closure() as (joint_in, closing):
             slam, run = run_loop(cfg, imgs, odo, gt, seed=0)
     finally:
         ba.schur_reduce = reduce_orig
@@ -1291,7 +1325,33 @@ def phase_loop(world):
 
     # the Schur kernel on the first joint GBA's real damped system
     joint = joint_schur_check(joint_in.first, "the loop phase's joint GBA")
-    return dict(k1=k1, k2=k2, k3=k3, k3_joint=n_joint, run=run, joint=joint, draws=runs)
+    return dict(k1=k1, k2=k2, k3=k3, k3_joint=n_joint, run=run, joint=joint, draws=runs,
+                closing=closing)
+
+
+@contextlib.contextmanager
+def first_closure():
+    """Yields (the ``run_global_ba_joint`` call counter, a dict that gets
+    the inputs of the first closure's verification: map, keyframe, loop
+    candidate and its match indices). Those are the latest
+    ``verify_and_build_batch`` call's before the first joint GBA, which
+    only a closure runs; the loop candidate is its last row."""
+    joint_in = Counted(loopclose, "run_global_ba_joint")
+    closing = {}
+    orig = loopclose.verify_and_build_batch
+
+    def spy(ms, k, cands, *args, **kw):
+        out = orig(ms, k, cands, *args, **kw)
+        if joint_in.calls == 0:
+            closing.update(ms=ms, k=k, cand=cands[-1], match_idx=out[0][-1])
+        return out
+
+    loopclose.verify_and_build_batch = spy
+    try:
+        with joint_in:
+            yield joint_in, closing
+    finally:
+        loopclose.verify_and_build_batch = orig
 
 
 def joint_schur_check(first_call, what, times=True):
@@ -1310,28 +1370,61 @@ def joint_schur_check(first_call, what, times=True):
     return joint
 
 
-def real_schur_check(Hpx, Hxx_inv, what, times=True):
-    """The Schur kernel on a real damped system: within JOINT_SCHUR_REL_MAX
-    of max|S| from the plain version in f64, beside the f32 einsum pair's
-    error on the same inputs (information), and, with ``times``, its times
-    there."""
-    want = K3.point_reduction_plain(Hpx.double(), Hxx_inv.double())
-    scale = float(want.abs().max())
+def schur_readings(Hpx, Hxx_inv):
+    """The Schur kernel on a real damped system against the plain version
+    in f64, its error measured against the sum of the products' magnitudes
+    (max of the plain version on |Hpx| and |Hxx⁻¹|, the scale a
+    floating-point sum of products is accurate to). Hxx⁻¹ reaches ~1e6
+    along weakly observed depth directions whose products cancel in S, by
+    1e2-1e4 on these systems, and local BA's float ``index_add_`` moves the
+    inputs from run to run; so the error against max|S| (``rel_err``,
+    beside the f32 einsum pair's and the cancellation) says how much
+    cancelled, not how well the kernel sums. The control: the f64 plain
+    version without the live point whose largest diagonal term is largest,
+    under the same measure."""
+    H64, I64 = Hpx.double(), Hxx_inv.double()
+    want = K3.point_reduction_plain(H64, I64)
+    scale = float(K3.point_reduction_plain(H64.abs(), I64.abs()).abs().max())
     got = K3.point_reduction(Hpx, Hxx_inv)
     plain32 = K3.point_reduction_plain(Hpx, Hxx_inv)
     torch.cuda.synchronize()
-    k3_err = float((got.double() - want).abs().max())
+    err = float((got.double() - want).abs().max())
     einsum_err = float((plain32.double() - want).abs().max())
-    # a block that holds no live point (a bank's tail) reduces to exact zeros
-    rel, einsum_rel = ((k3_err / scale, einsum_err / scale) if scale > 0
-                       else (math.inf if k3_err else 0.0, math.inf if einsum_err else 0.0))
-    if not (math.isfinite(rel) and rel <= JOINT_SCHUR_REL_MAX):
-        raise SystemExit(f"chip_smoke: Schur kernel on {what} {tuple(Hpx.shape)}: relative "
-                         f"error {rel} > {JOINT_SCHUR_REL_MAX} (f32 einsum {einsum_rel})")
-    joint = dict(
-        shape_KM=(Hpx.shape[0], Hpx.shape[2]), max_abs_err=k3_err, rel_err=rel,
-        rel_bound=JOINT_SCHUR_REL_MAX, einsum_f32_rel_err=einsum_rel,
-        rel_err_over_einsum=rel / max(einsum_rel, 1e-30), max_abs_S=scale)
+    smax = float(want.abs().max())
+    live = int((Hpx.abs().sum((0, 1, 3)) > 0).sum())
+    out = dict(shape_KM=(Hpx.shape[0], Hpx.shape[2]), live_points=live, max_abs_err=err,
+               abs_rel_err=err / scale if scale > 0 else (math.inf if err else 0.0),
+               abs_rel_bound=SCHUR_ABS_REL_MAX, max_abs_S=smax, magnitude_scale=scale)
+    if scale > 0:
+        # a point's contribution Hpx_m Hxx⁻¹_m Hpx_mᵀ is positive
+        # semidefinite: its largest entry is a diagonal one
+        m = int(torch.einsum("kamb,mbd,kamd->kam", H64, I64, H64).amax((0, 1)).argmax())
+        H_drop = H64.clone()
+        H_drop[:, :, m] = 0.0
+        control = float((K3.point_reduction_plain(H_drop, I64) - want).abs().max()) / scale
+        out.update(rel_err=err / smax, einsum_f32_rel_err=einsum_err / smax,
+                   einsum_f32_abs_rel_err=einsum_err / scale, cancellation=scale / smax,
+                   control_point=m, control_abs_rel=control,
+                   control_over_bound=control / SCHUR_ABS_REL_MAX)
+    return out
+
+
+def schur_readings_ok(out):
+    """Within SCHUR_ABS_REL_MAX of the magnitude scale, exact zeros on a
+    system with no live point (a bank's tail block), and the control at
+    least SCHUR_CONTROL_MIN times the bound."""
+    return (math.isfinite(out["abs_rel_err"]) and out["abs_rel_err"] <= SCHUR_ABS_REL_MAX
+            and (out["magnitude_scale"] == 0
+                 or out["control_over_bound"] >= SCHUR_CONTROL_MIN))
+
+
+def real_schur_check(Hpx, Hxx_inv, what, times=True):
+    """``schur_readings`` on a real damped system, held to
+    ``schur_readings_ok``; with ``times``, the kernel's, the plain
+    version's and the einsum's times there."""
+    out = schur_readings(Hpx, Hxx_inv)
+    if not schur_readings_ok(out):
+        raise SystemExit(f"chip_smoke: Schur kernel on {what}: " + json.dumps(out))
     if times:
         bound, by = schur_bound(Hpx.shape[0], Hpx.shape[2])
         fns = dict(kernel=lambda: K3.point_reduction(Hpx, Hxx_inv),
@@ -1339,12 +1432,12 @@ def real_schur_check(Hpx, Hxx_inv, what, times=True):
                    library=lambda: torch.einsum("kamb,mbd,lcmd->klac", Hpx, Hxx_inv, Hpx))
         t = {name: (graph_ms(f, inner=10, reps=20), events_ms(f, reps=20))
              for name, f in fns.items()}
-        joint.update(ms=t["kernel"][0], eager_ms=t["kernel"][1], plain_ms=t["plain"][0],
-                     plain_eager_ms=t["plain"][1], library_ms=t["library"][0],
-                     library_eager_ms=t["library"][1], bound_ms=bound, bound_by=by)
+        out.update(ms=t["kernel"][0], eager_ms=t["kernel"][1], plain_ms=t["plain"][0],
+                   plain_eager_ms=t["plain"][1], library_ms=t["library"][0],
+                   library_eager_ms=t["library"][1], bound_ms=bound, bound_by=by)
     log(f"kernel: Schur on {what}'s real damped system (ms; graph, and eager_): "
-        + json.dumps(joint))
-    return joint
+        + json.dumps(out))
+    return out
 
 
 def phase_relief(world):
@@ -2333,6 +2426,7 @@ def phase_merge():
                    k3_launches=k3, k3_shapes=sorted(set(shapes)))
         joint = joint_schur_check(jg.first, f"the merge's joint GBA (draw {seed})",
                                   times=merged0 is None)
+        run["joint_schur_abs_rel_err"] = joint["abs_rel_err"]
         run["joint_schur_rel_err"] = joint["rel_err"]
         runs.append(run)
         log("merge: " + json.dumps(run))
@@ -2443,32 +2537,6 @@ def spied_schur(spy):
         ba.schur_reduce = spy["orig"]
 
 
-def block_schur_check(Hpx, Hxx_inv, what):
-    """The Schur kernel on a real damped point block of the distributed
-    local BA against the plain version in f64, its error measured against
-    the sum of the products' magnitudes (max of the plain version on
-    |Hpx| and |Hxx⁻¹|, the scale a floating-point sum of products is
-    accurate to): within SCHUR_ABS_REL_MAX of it. On these blocks S is a
-    cancelling sum ~3,000-6,000 times smaller than that scale, so the
-    error against max|S| (printed, with the f32 einsum pair's) says how
-    much cancelled, not how well the kernel sums."""
-    want = K3.point_reduction_plain(Hpx.double(), Hxx_inv.double())
-    scale = float(K3.point_reduction_plain(Hpx.double().abs(), Hxx_inv.double().abs())
-                  .abs().max())
-    got = K3.point_reduction(Hpx, Hxx_inv)
-    plain32 = K3.point_reduction_plain(Hpx, Hxx_inv)
-    torch.cuda.synchronize()
-    err = float((got.double() - want).abs().max())
-    smax = float(want.abs().max())
-    out = dict(shape_KM=(Hpx.shape[0], Hpx.shape[2]), abs_rel_err=err / scale,
-               abs_rel_bound=SCHUR_ABS_REL_MAX, rel_err=err / smax,
-               einsum_f32_rel_err=float((plain32.double() - want).abs().max()) / smax,
-               cancellation=scale / smax)
-    if not (math.isfinite(err) and err / scale <= SCHUR_ABS_REL_MAX):
-        raise SystemExit(f"chip_smoke: Schur kernel on {what}: " + json.dumps(out))
-    return out
-
-
 def phase_mesh_solvers(mesh):
     """``entry.dryrun_multichip`` on ``mesh`` (MESH_BLOCKS blocks of the
     card): every distributed path at the JAX package's dry-run shapes with
@@ -2488,8 +2556,8 @@ def phase_mesh_solvers(mesh):
         except AssertionError as e:
             raise SystemExit(f"chip_smoke: dryrun_multichip on {mesh}: {e!r}")
     k1, k2, k3 = K1.fast_nms.launches, K2.windowed_top2.launches, K3.point_reduction.launches
-    checks = [block_schur_check(Hpx, Hxx_inv, f"block {b} of the distributed local BA")
-              for b, (Hpx, Hxx_inv) in enumerate(spy["kept"])]
+    checks = [real_schur_check(Hpx, Hxx_inv, f"block {b} of the distributed local BA",
+                               times=False) for b, (Hpx, Hxx_inv) in enumerate(spy["kept"])]
     shapes = sorted(set(spy["shapes"]))
     cfg_s = session_cfg()
     # 3 LM steps x blocks at (64, 512); the single solves at (64, 2048);
@@ -2545,11 +2613,9 @@ def phase_mesh_session(world, mesh, single):
                          f"blocks, K3 {k3} launches, want {want_k3})")
     blocks = []
     for b, (Hpx, Hxx_inv) in enumerate(spy["kept"]):
+        # live points sit in the bank's low slots, so the tail blocks hold none
         blocks.append(real_schur_check(Hpx, Hxx_inv, f"block {b} of the mesh session's joint GBA",
                                        times=b == 0))
-        # the block's points with any observation weight (live points sit in
-        # the bank's low slots, so the tail blocks hold none)
-        blocks[-1]["live_points"] = int((Hpx.abs().sum((0, 1, 3)) > 0).sum())
     log("mesh session blocks' live points: " + json.dumps([b["live_points"] for b in blocks]))
     return dict(run=run, blocks=blocks)
 
@@ -2599,6 +2665,161 @@ def phase_runtime(mesh):
     return out
 
 
+def phase_mini_ba(cfg, closing):
+    """The 2-KF mini-BA constraint (``loopclose.build_loop_constraint_ba``)
+    on the loop phase's first closure (map, keyframe, loop candidate and
+    its verified matches), beside the pose-only ``build_loop_constraint``:
+    MINI_BA_ITERS K3 launches at (2, N); K3 on the mini-BA's first damped
+    system (``real_schur_check``); ``meas`` bitwise ``se2.minus`` of the
+    optimized poses; ``info`` symmetric with eigenvalues in [1e-6, 1e4 +
+    the diagonal shift] (to within the reconstruction's 8·eps·λmax); the
+    same call on the CPU within MINI_BA_*; the call's ms (CUDA events)."""
+    from se2lam_tpu_torch.ops import se2
+
+    if not closing:
+        raise SystemExit("chip_smoke: the loop phase recorded no closure for the mini-BA")
+    ms, k, cand, midx = (closing[n] for n in ("ms", "k", "cand", "match_idx"))
+    shape = (2, ms.N)
+    spy = schur_spy(shape, 1)
+    K3.point_reduction.launches = 0
+    with spied_schur(spy), Counted(loopclose, "solve_local_ba") as sba:
+        meas, info, n_good, _ = loopclose.build_loop_constraint_ba(ms, k, cand, midx, cfg)
+    launches = K3.point_reduction.launches
+    if launches != MINI_BA_ITERS or spy["shapes"] != [shape] * MINI_BA_ITERS:
+        raise SystemExit(f"chip_smoke: the mini-BA launched K3 {launches} times at "
+                         f"{sorted(set(spy['shapes']))}, want {MINI_BA_ITERS} at {shape}")
+    k3 = real_schur_check(*spy["kept"][0], "the mini-BA's first LM step", times=False)
+    opt = sba.last[0]
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    loopclose.build_loop_constraint_ba(ms, k, cand, midx, cfg)
+    b.record()
+    pose_only = loopclose.build_loop_constraint(ms, k, cand, midx, cfg)
+    cpu = mini_ba_cpu_diff(cfg, closing, meas, info, n_good)
+    ev = np.linalg.eigvalsh(info.double().cpu().numpy())
+    shift = 1e-6 + 8.0 * float(torch.finfo(torch.float32).eps) * ev.max()
+    out = dict(
+        shape_KM=shape, k3_launches=launches, k3=k3, ms=a.elapsed_time(b),
+        meas=meas.tolist(), info=info.tolist(), n_good=int(n_good), n_pairs=int((midx >= 0).sum()),
+        eigenvalues=ev.tolist(), meas_is_minus=bool(torch.equal(meas, se2.minus(opt[1], opt[0]))),
+        symmetric=bool(torch.equal(info, info.T)), **cpu,
+        pose_only=dict(meas=pose_only[0].tolist(), info=pose_only[1].tolist(),
+                       n_good=int(pose_only[2])))
+    log("mini-BA constraint: " + json.dumps(out))
+    if not (out["meas_is_minus"] and out["symmetric"] and ev.min() >= 1e-6
+            and ev.max() <= 1e4 + 2 * shift and int(n_good) >= 1
+            and out["cpu_n_good_diff"] <= MINI_BA_N_GOOD_TOL
+            and out["cpu_meas_diff"] <= MINI_BA_MEAS_TOL
+            and out["cpu_info_rel_diff"] <= MINI_BA_INFO_RTOL):
+        raise SystemExit("chip_smoke: the mini-BA constraint failed its checks")
+    return out
+
+
+def mini_ba_cpu_diff(cfg, closing, meas, info, n_good):
+    """``build_loop_constraint_ba`` on the same closure on the CPU, and its
+    differences from the card's (meas, info, n_good)."""
+    ms, k, cand, midx = (closing[n] for n in ("ms", "k", "cand", "match_idx"))
+    k_c, cand_c, midx_c = (torch.as_tensor(x).cpu() for x in (k, cand, midx))
+    meas_c, info_c, n_good_c, _ = loopclose.build_loop_constraint_ba(
+        MapState(*(t.cpu() for t in ms)), k_c, cand_c, midx_c, cfg)
+    return dict(cpu=dict(meas=meas_c.tolist(), info=info_c.tolist(), n_good=int(n_good_c)),
+                cpu_n_good_diff=abs(int(n_good) - int(n_good_c)),
+                cpu_meas_diff=float((meas.cpu() - meas_c).abs().max()),
+                cpu_info_rel_diff=float((info.cpu() - info_c).abs().max() / info_c.abs().max()))
+
+
+def phase_outliers(cfg, ms):
+    """``localmap.remove_outlier_obs`` on the saved mapping map at its last
+    keyframe, then with a point moved by OUTLIER_SHIFT (the first valid
+    point whose observers all lie in the local window, so that all its
+    observations turn outliers): the victim gone from every keyframe row
+    and killed, the tables consistent, every integer table and ``n_bad``
+    bitwise the CPU's on the same map; the smallest |chi2 − th_huber2| of
+    the window's observations (how far the gate is from a flip between
+    the devices)."""
+    cur = int(torch.nonzero(ms.kf_valid).max())
+    local_kfs = localmap.local_graph_masks(ms, cur)[0]
+    P = ms.mp_obs_kf.shape[1]
+    live = torch.arange(P, device=ms.mp_n_obs.device)[None] < ms.mp_n_obs[:, None]
+    all_local = (live <= local_kfs[ms.mp_obs_kf.clamp(min=0).long()]).all(1)
+    victim = int(torch.nonzero(ms.mp_valid & all_local & (ms.mp_n_obs >= 2))[0])
+    shift = torch.tensor([OUTLIER_SHIFT], dtype=ms.mp_pos.dtype, device=ms.mp_pos.device)
+    bad_ms = ms._replace(mp_pos=ms.mp_pos.index_add(
+        0, torch.tensor([victim], device=ms.mp_pos.device), shift))
+    tables = ("kf_obs_mp", "mp_obs_kf", "mp_obs_feat", "mp_n_obs", "mp_valid")
+    out = {}
+    for name, m in (("clean", ms), ("corrupted", bad_ms)):
+        got, n_bad = localmap.remove_outlier_obs(m, cur, cfg)
+        want, n_bad_c = localmap.remove_outlier_obs(MapState(*(t.cpu() for t in m)), cur, cfg)
+        has, chi2 = localmap.local_obs_chi2(m, cur, cfg)
+        out[name] = dict(
+            n_bad=int(n_bad), n_bad_cpu=int(n_bad_c), local_obs=int(has.sum()),
+            chi2_margin=float((chi2[has] - cfg.th_huber2).abs().min()),
+            bitwise_cpu=all(torch.equal(getattr(got, f).cpu(), getattr(want, f)) for f in tables),
+            consistent=table_consistency(got), victim_in_rows=bool((got.kf_obs_mp == victim).any()),
+            victim_valid=bool(got.mp_valid[victim]), live_points=int(got.mp_valid.sum()))
+    log(f"outlier removal at KF {cur}, victim {victim}: " + json.dumps(out))
+    c, v = out["clean"], out["corrupted"]
+    if not (c["bitwise_cpu"] and v["bitwise_cpu"] and c["consistent"] and v["consistent"]
+            and c["n_bad"] == c["n_bad_cpu"] and v["n_bad"] == v["n_bad_cpu"]
+            and v["n_bad"] > c["n_bad"] and not v["victim_in_rows"] and not v["victim_valid"]):
+        raise SystemExit("chip_smoke: outlier removal failed its checks")
+    return out
+
+
+def phase_harris(oc, extract, world, gt):
+    """The extractor with Harris rescoring (``use_harris``) on HARRIS_FRAMES
+    of the bench world: every output but ``response`` bitwise the card's
+    output without it, ``forward_batch`` bitwise ``forward`` frame by
+    frame, the same K1 launches as without it (one a frame, ⌈levels·4/8⌉
+    for the batch), ``response`` within HARRIS_RTOL of max|R| from the
+    CPU's on the same slots; the eager ms a frame with and without it."""
+    ext = OrbExtractor(oc._replace(use_harris=True))
+    ext_cpu = OrbExtractor(oc._replace(use_harris=True), device="cpu")
+    imgs = torch.stack([torch.from_numpy(world.render(gt[i])) for i in HARRIS_FRAMES]).cuda()
+    launches = {}
+    for name, fn in (("off", lambda: [extract(im) for im in imgs]),
+                     ("on", lambda: [ext(im) for im in imgs]),
+                     ("off_batch", lambda: extract.forward_batch(imgs)),
+                     ("on_batch", lambda: ext.forward_batch(imgs))):
+        K1.fast_nms.launches = 0
+        launches[name] = (fn(), K1.fast_nms.launches)
+    (off, n_off), (on, n_on) = launches["off"], launches["on"]
+    (_, n_off_b), (batch, n_on_b) = launches["off_batch"], launches["on_batch"]
+    fields = [f for f in OrbFeatures._fields if f != "response"]
+    rel = []
+    for i, img in enumerate(imgs):
+        if not all(torch.equal(getattr(on[i], f), getattr(off[i], f)) for f in fields):
+            raise SystemExit(f"chip_smoke: Harris changed more than the response of frame {i}")
+        if not all(torch.equal(getattr(batch, f)[i], getattr(on[i], f))
+                   for f in OrbFeatures._fields):
+            raise SystemExit(f"chip_smoke: Harris forward_batch differs from forward at frame {i}")
+        fc = ext_cpu(img.cpu())
+        v = fc.valid
+        if not (torch.equal(on[i].valid.cpu(), v) and torch.equal(on[i].octave.cpu(), fc.octave)):
+            raise SystemExit(f"chip_smoke: Harris keypoint slots differ from the CPU's, frame {i}")
+        r_c = fc.response[v]
+        rel.append(float((on[i].response.cpu()[v] - r_c).abs().max() / r_c.abs().max()))
+    out = dict(frames=list(HARRIS_FRAMES), k1_launches=n_on, k1_launches_off=n_off,
+               k1_launches_batch=n_on_b, k1_launches_batch_off=n_off_b,
+               response_rel_diff_cpu=rel, rel_tol=HARRIS_RTOL,
+               max_abs_response=float(on[0].response.abs().max()),
+               eager_ms=events_ms(lambda: ext(imgs[0]), reps=20),
+               eager_ms_off=events_ms(lambda: extract(imgs[0]), reps=20))
+    log("Harris extraction: " + json.dumps(out))
+    levels = sum(q > 0 for q in oc.level_quotas)
+    if not (n_on == n_off == len(imgs) and n_on_b == n_off_b == -(-levels * len(imgs) // 8)
+            and max(rel) <= HARRIS_RTOL):
+        raise SystemExit("chip_smoke: Harris extraction failed its checks")
+    return out
+
+
+def phase_slice8(cfg, oc, extract, world, gt, closing, ms):
+    """Slice 8: the mini-BA constraint, outlier removal, Harris rescoring."""
+    return dict(mini_ba=phase_mini_ba(cfg, closing), outliers=phase_outliers(cfg, ms),
+                harris=phase_harris(oc, extract, world, gt))
+
+
 def timed(name, fn, *args):
     """Run one phase and print its seconds."""
     t0 = time.perf_counter()
@@ -2619,7 +2840,7 @@ def main():
     timed("extractor", phase_extractor, extract, oc, world.render(gt[5]))
     launches = timed("main path", phase_main_path, cfg, oc, extract, world, gt)
     ts = timed("schur", phase_schur)
-    slam, run, k1_map, k2_map, k3_map, real_err = timed("mapping", phase_mapping, cfg, world)
+    slam, run, k1_map, k2_map, k3_map, real_ba = timed("mapping", phase_mapping, cfg, world)
     k2_err = timed("k2", phase_k2)
     k1_loc, k2_loc, t2, res = timed("localization", phase_localization, cfg, world, slam)
     f1 = timed("f1", phase_f1, world)
@@ -2640,6 +2861,7 @@ def main():
     merge = timed("merge", phase_merge)
     mesh_solvers = child["mesh_solvers"]
     mesh_run = timed("mesh session", phase_mesh_session, loop_world, mesh, lp["run"])
+    slice8 = timed("slice 8", phase_slice8, cfg, oc, extract, world, gt, lp["closing"], ms)
     slice6 = {name: {f"launches_{p}": v[f"k{i}_launches"] for p, v in (
         ("dataset", data), ("live_chunked", live["chunked"]), ("live_pipelined", live["pipelined"]),
         ("merge_mapping", merge["mapping"]), ("merge", merge["runs"][0]))}
@@ -2664,12 +2886,14 @@ def main():
         launches_fleet_tracking_mesh=fleet["mesh"]["k1_launches"],
         launches_mesh_solvers=mesh_solvers["k1_launches"],
         launches_mesh_session=mesh_run["run"]["k1_launches"],
+        launches_harris=slice8["harris"]["k1_launches"],
+        launches_harris_batch=slice8["harris"]["k1_launches_batch"],
     )
     loc, glob = ts[LOCAL_BA_SHAPE], ts[GLOBAL_BA_SHAPE]
     schur_kernel = dict(
         name="schur_reduce", route="cuda", source="se2lam_tpu_torch/csrc/schur_reduce.cu",
         replaces="se2lam_tpu/solver/pallas_schur.py:91", launches=k3_map,
-        max_abs_err=loc["max_abs_err"], rel_err=loc["rel_err"], real_ba_max_abs_err=real_err,
+        max_abs_err=loc["max_abs_err"], rel_err=loc["rel_err"], real_local_ba=real_ba,
         ms=loc["ms"], eager_ms=loc["eager_ms"], plain_ms=loc["plain_ms"],
         plain_eager_ms=loc["plain_eager_ms"], bound_ms=loc["bound_ms"],
         bound_by=loc["bound_by"], library_ms=loc["library_ms"],
@@ -2679,6 +2903,7 @@ def main():
         joint_gba=lp["joint"], card=smi,
         launches_feeds={f: v["k3"] for f, v in feeds["launches"].items()},
         merge_joint_gba=merge["joint"],
+        merge_joint_abs_rel_err=[r["joint_schur_abs_rel_err"] for r in merge["runs"]],
         merge_joint_rel_err=[r["joint_schur_rel_err"] for r in merge["runs"]], **slice6["k3"],
         launches_mesh_solvers=mesh_solvers["k3_launches"],
         mesh_solvers_shapes_KM=mesh_solvers["k3_shapes"],
@@ -2686,6 +2911,10 @@ def main():
         launches_mesh_session=mesh_run["run"]["k3_launches"],
         launches_mesh_session_per_block=mesh_run["run"]["k3_block_launches"],
         mesh_session_shapes_KM=mesh_run["run"]["k3_shapes"], mesh_session_blocks=mesh_run["blocks"],
+        launches_mini_ba=slice8["mini_ba"]["k3_launches"],
+        mini_ba_shape_KM=slice8["mini_ba"]["shape_KM"],
+        mini_ba=dict(ts[MINI_BA_SHAPE], shape_KM=MINI_BA_SHAPE),
+        mini_ba_real=slice8["mini_ba"]["k3"],
     )
     match_kernel = dict(
         name="windowed_top2", route="cuda", source="se2lam_tpu_torch/csrc/windowed_top2.cu",

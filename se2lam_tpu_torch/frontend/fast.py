@@ -19,7 +19,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["fast_score_pair", "nms3x3"]
+__all__ = ["fast_score", "fast_score_pair", "nms3x3"]
 
 # Bresenham circle of radius 3, in circular order: (dx, dy)
 _CIRCLE = (
@@ -54,6 +54,18 @@ def _margin(signed_diff, threshold):
     for i in range(1, m.shape[0]):
         acc = acc + m[i]
     return acc
+
+
+def fast_score(img, threshold: float):
+    """(H, W) FAST-9/16 response at one threshold: 0 where no arc of 9
+    clears it, else the larger of the bright and the dark side's margin
+    at that threshold. Border pixels (3 px) read wrapped values; callers
+    mask a 16-px border (EDGE_THRESHOLD, src/ORBextractor.cpp:83)."""
+    diff = _circle_diffs(img)
+    neg = -diff
+    margin = torch.maximum(_margin(diff, threshold), _margin(neg, threshold))
+    corner = _arc_test(diff, threshold) | _arc_test(neg, threshold)
+    return torch.where(corner, margin, torch.zeros_like(margin))
 
 
 def fast_score_pair(img, t_high: float, t_low: float):

@@ -53,6 +53,10 @@ class OrbConfig(NamedTuple):
     min_high_corners: int = 3  # "<=3 → retry at low th"
     edge: int = 16            # EDGE_THRESHOLD border exclusion
     features_per_cell: int = 3
+    use_harris: bool = False  # rescore responses with Harris (the
+    #                           reference's optional HarrisResponses,
+    #                           src/ORBextractor.cpp:85-126; selection
+    #                           stays FAST-ordered either way)
 
     @property
     def scales(self):
@@ -273,6 +277,35 @@ def _gather3x3(mapv, ys, xs):
     return mapv[rows[:, :, None], cols[:, None, :]]
 
 
+def _harris_response(img, ys, xs, k: float = 0.04, block: int = 7):
+    """Harris corner response at keypoint positions (the reference's
+    optional HarrisResponses rescoring, src/ORBextractor.cpp:85-126), in
+    the JAX package's order of operations: central-difference gradients
+    (zero on the border), a separable ``block``-wide box sum of the
+    second-moment products as ``block`` shifted adds left to right in
+    each direction (zero padded), then a gather at the integer positions,
+    clamped to the level as a JAX gather clamps. Written out of place, so
+    ``torch.vmap`` batches it over frames."""
+    H, W = img.shape
+    pad = torch.nn.functional.pad
+    gx = pad(0.5 * (img[:, 2:] - img[:, :-2]), (1, 1))
+    gy = pad(0.5 * (img[2:, :] - img[:-2, :]), (0, 0, 1, 1))
+    r = block // 2
+
+    def box(x):
+        ph = pad(x, (r, r))
+        s = sum(ph[:, i: i + W] for i in range(block))
+        pv = pad(s, (0, 0, r, r))
+        return sum(pv[i: i + H] for i in range(block))
+
+    scale = 1.0 / (4.0 * block * 255.0)   # the reference's 1/(4·blockSize·255)
+    a = box(gx * gx) * (scale * scale)
+    b = box(gy * gy) * (scale * scale)
+    c = box(gx * gy) * (scale * scale)
+    R = (a * b - c * c) - k * (a + b) * (a + b)
+    return R[ys.clamp(0, H - 1), xs.clamp(0, W - 1)]
+
+
 def _extract_patches(img, ys, xs):
     """(Q, S, S) patches at integer centres, clamped to the border, with the
     pixel values rounded through bf16 (exact for 8-bit integers, ≤0.5 gray
@@ -355,6 +388,8 @@ class OrbExtractor(torch.nn.Module):
             cfg, nms_hi, nms_lo, sl_raw, quota
         )
         angle, bits = self._moments_and_bits(level_img, ys, xs)
+        if cfg.use_harris:
+            resp = _harris_response(level_img, ys, xs)
         scale = cfg.scales[l]
         return dict(
             xy=torch.stack([xs_f, ys_f], -1) * scale,

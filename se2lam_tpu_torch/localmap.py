@@ -49,6 +49,8 @@ __all__ = [
     "LocalWindow",
     "build_local_ba",
     "run_local_ba",
+    "local_obs_chi2",
+    "remove_outlier_obs",
     "recompute_covis",
     "cull_weak_mps",
     "compact_mps",
@@ -888,3 +890,56 @@ def run_local_ba(ms: MapState, cur_kf, cfg: SystemConfig):
         kf_pose=_scatter(ms.kf_pose, torch.where(free, win.win_kf, ms.K), poses),
         mp_pos=_scatter(ms.mp_pos, torch.where(win.mp_sel, win.win_mp, ms.M), points),
     ), info
+
+
+def local_obs_chi2(ms: MapState, cur_kf, cfg: SystemConfig):
+    """(has, chi2), each (K, N): which forward observations belong to the
+    local window of ``cur_kf`` (``local_graph_masks``), and the unweighted
+    pixel chi2 of every (keyframe, feature) observation."""
+    K, N = ms.K, ms.N
+    c = constants(cfg, ms.kf_pose.device)
+    local_kfs, _, _ = local_graph_masks(ms, cur_kf)
+    m = ms.kf_obs_mp
+    pts = ms.mp_pos[m.clamp(min=0).long()]                   # (K, N, 3)
+    poses = ms.kf_pose[:, None, :].expand(K, N, 3)
+    r = factors.se2xyz_residual(poses, pts, ms.kf_xy, c["cam"], c["Tcb"])
+    return (m >= 0) & local_kfs[:, None], (r * r).sum(-1)
+
+
+def remove_outlier_obs(ms: MapState, cur_kf, cfg: SystemConfig):
+    """Demote the local window's observations whose pixel chi2 exceeds
+    th_huber2, and kill the map points left with fewer than 2
+    observations (LocalMapper::removeOutlierChi2 + Map::
+    removeLocalOutlierMP, src/LocalMapper.cpp:172-230, src/Map.cpp:700-752).
+    As in the JAX package and the reference, which comments it out of the
+    run loop (src/LocalMapper.cpp:329), no default path calls it.
+    Returns (MapState, n_bad)."""
+    M, P = ms.M, ms.mp_obs_kf.shape[1]
+    dev = ms.kf_pose.device
+    has, chi2 = local_obs_chi2(ms, cur_kf, cfg)
+    bad = has & (chi2 > cfg.th_huber2)
+    m = ms.kf_obs_mp
+    new_obs = torch.where(bad, -1, m)
+
+    # compact the inverse lists: entries whose forward pointer still
+    # names the point first, in slot order (the key is unique in a row,
+    # so the sort is exact)
+    okf, oft = ms.mp_obs_kf.clamp(min=0).long(), ms.mp_obs_feat.clamp(min=0).long()
+    rows = torch.arange(M, dtype=m.dtype, device=dev)[:, None]
+    fwd_ok = (new_obs[okf, oft] == rows) & (ms.mp_obs_kf >= 0)
+    key = (~fwd_ok).to(torch.int32) * P + torch.arange(P, dtype=torch.int32, device=dev)[None]
+    order = torch.argsort(key, dim=1)
+    obs_kf = torch.where(fwd_ok, ms.mp_obs_kf, -1).gather(1, order)
+    obs_ft = torch.where(fwd_ok, ms.mp_obs_feat, -1).gather(1, order)
+    n_obs = (obs_kf >= 0).sum(1, dtype=_I32)
+    new_valid = ms.mp_valid & (n_obs >= 2)
+    # a killed point's surviving forward pointers are cleared too, or its
+    # feature slots stay blocked (prune_redundant_kf does the same)
+    fwd = torch.where((new_obs >= 0) & ~new_valid[new_obs.clamp(min=0).long()], -1, new_obs)
+    return ms._replace(
+        kf_obs_mp=fwd,
+        mp_obs_kf=obs_kf,
+        mp_obs_feat=obs_ft,
+        mp_n_obs=n_obs,
+        mp_valid=new_valid,
+    ), bad.sum(dtype=_I32)

@@ -28,9 +28,10 @@ GlobalBA is the edge-sharded PCG (``run_global_ba_dist``) and the joint
 GBA the map-block partitioned Schur-GN (``run_global_ba_joint_dist``,
 kernel K3 on each CUDA block).
 
-Not here (``ROADMAP.md``): the 2-KF mini-BA constraint
-``build_loop_constraint_ba`` with its sparsifier (test-only in the JAX
-package).
+``build_loop_constraint_ba`` is the 2-KF mini-BA constraint with its
+sparsifier (``solver/sparsifier.py``): no path of the stage calls it, as in
+the JAX package, whose default is the metrically anchored
+``build_loop_constraint``. Its local BA runs K3 at (K, M) = (2, N).
 """
 from __future__ import annotations
 
@@ -52,10 +53,12 @@ from .ops import linalg, se2, se3
 from .solver.ba import BAConfig, BAProblem, obs_chi2, solve_local_ba
 from .solver.posegraph import PoseGraphProblem, solve_pose_graph
 from .solver.poseonly import solve_pose_only
+from .solver.sparsifier import marginalize_pair_constraint
 from .tracking import constants
 
 __all__ = [
-    "LoopCloser", "kf_features", "verify_loop", "build_loop_constraint",
+    "LoopCloser", "kf_features", "verify_loop", "build_loop_constraint_ba",
+    "build_loop_constraint",
     "verify_and_build_batch", "select_feat_pairs", "add_ftr_edge", "merge_loop_mps",
     "bow_detect", "build_pose_graph", "apply_pose_graph_result", "run_global_ba",
     "build_global_ba", "run_global_ba_joint", "loop_stage", "run_global_ba_dist",
@@ -120,6 +123,86 @@ def verify_loop(ms: MapState, k, cand, n_trials: int = 128, *,
     return midx, n_kp, mp_pair.sum(dtype=_I32), (m_cur_row >= 0).sum(dtype=_I32)
 
 
+def _loop_pairs(ms: MapState, k, cand, match_idx):
+    """The loop keyframe's map points matched into keyframe ``k``: (j,
+    pair, points, uv_cur) with j the clamped match indices, ``pair`` the
+    matches whose loop-side point is valid, the points' positions and
+    their measurements in ``k``."""
+    j = match_idx.clamp(min=0).long()
+    m_loop = _row(ms.kf_obs_mp, cand)
+    ml = m_loop.clamp(min=0).long()
+    pair = (match_idx >= 0) & (m_loop >= 0) & ms.mp_valid[ml]
+    return j, pair, ms.mp_pos[ml], _row(ms.kf_xy, k)[j]
+
+
+def _pixel_info(view, info3, cam):
+    """Anisotropic 2x2 pixel information from a stored per-view 3x3 point
+    information (the mViewMPsInfo role in OptKFPairMatch,
+    src/GlobalMapper.cpp:929-1032): Σ_uv = J Σ₃ Jᵀ + I through the camera
+    Jacobian at the stored camera-frame point, inverted; identity where
+    the information was never filled."""
+    dtype, dev = view.dtype, view.device
+    eye2 = torch.eye(2, dtype=dtype, device=dev)
+    has = torch.diagonal(info3, dim1=-2, dim2=-1).sum(-1) > 1e-9
+    sigma3 = linalg.inv3x3(info3 + 1e-9 * torch.eye(3, dtype=dtype, device=dev))
+    J = factors.pixel_jacobian(view, cam)
+    info2 = linalg.inv2x2(J @ sigma3 @ J.transpose(-1, -2) + eye2)
+    return torch.where(has[..., None, None], info2, eye2)
+
+
+def build_loop_constraint_ba(ms: MapState, k, cand, match_idx, cfg: SystemConfig):
+    """2-KF mini-BA + Schur sparsification → one relative SE2 constraint
+    (CreateFeatEdge/OptKFPairMatch + Sparsifier,
+    src/GlobalMapper.cpp:781-1032, src/sparsifier.cpp:105-274).
+
+    The loop keyframe's pose is fixed; the current pose and the paired
+    map points are free (10 LM steps, Huber at √th_huber2; on the card 10
+    K3 launches at (2, N)). Pairs with a reprojection chi2 of 25 or more
+    in either view after the solve are dropped, and the rest are
+    marginalized onto the relative pose. With only two views the
+    translation scale is a near-gauge direction that the points' initial
+    positions pin through the damping alone; ``build_loop_constraint`` is
+    the default for that reason. Returns (meas, info, n_good, good)."""
+    c = constants(cfg, ms.kf_pose.device)
+    cam, Tcb = c["cam"], c["Tcb"]
+    N, dtype, dev = ms.N, ms.kf_pose.dtype, ms.kf_pose.device
+    j, pair, points, uv_cur = _loop_pairs(ms, k, cand, match_idx)
+    uv_loop = _row(ms.kf_xy, cand)
+    info_loop = _pixel_info(_row(ms.kf_view_mp, cand), _row(ms.kf_view_info, cand), cam)
+    info_cur = _pixel_info(_row(ms.kf_view_mp, k)[j], _row(ms.kf_view_info, k)[j], cam)
+
+    # the mini-BA: pose_loop fixed, pose_cur and the points free
+    one = torch.ones((N,), dtype=_I32, device=dev)
+    prob = BAProblem(
+        poses=torch.stack([_row(ms.kf_pose, cand), _row(ms.kf_pose, k)]),
+        points=points,
+        pose_valid=torch.ones((2,), dtype=torch.bool, device=dev),
+        pose_fixed=torch.tensor([True, False], device=dev),
+        point_valid=pair,
+        obs_kf=torch.cat([0 * one, one]),
+        obs_mp=torch.arange(N, dtype=_I32, device=dev).repeat(2),
+        obs_uv=torch.cat([uv_loop, uv_cur]),
+        obs_info=torch.cat([info_loop, info_cur]),
+        obs_valid=torch.cat([pair, pair]),
+        edge_i=torch.zeros((1,), dtype=_I32, device=dev),
+        edge_j=torch.zeros((1,), dtype=_I32, device=dev),
+        edge_meas=torch.zeros((1, 3), dtype=dtype, device=dev),
+        edge_info=torch.zeros((1, 3, 3), dtype=dtype, device=dev),
+        edge_valid=torch.zeros((1,), dtype=torch.bool, device=dev),
+    )
+    ba_cfg = BAConfig(iters=10, huber_delta=float(cfg.th_huber2) ** 0.5)
+    opt_poses, opt_points, _ = solve_local_ba(prob, cam, Tcb, ba_cfg)
+
+    # chi2 gate per pair in both views (OptKFPairMatch chi2 > 5 outliers,
+    # src/GlobalMapper.cpp:1006-1022)
+    r_cur = factors.se2xyz_residual(opt_poses[1], opt_points, uv_cur, cam, Tcb)
+    r_loop = factors.se2xyz_residual(opt_poses[0], opt_points, uv_loop, cam, Tcb)
+    good = pair & ((r_cur * r_cur).sum(-1) < 25.0) & ((r_loop * r_loop).sum(-1) < 25.0)
+    meas, info = marginalize_pair_constraint(opt_poses[0], opt_poses[1], opt_points, uv_loop,
+                                             uv_cur, good, cam, Tcb)
+    return meas, info, good.sum(dtype=_I32), good
+
+
 def build_loop_constraint(ms: MapState, k, cand, match_idx, cfg: SystemConfig):
     """Relative SE2 loop constraint from a pose-only solve of keyframe
     ``k`` against the loop keyframe's FIXED map points (metrically
@@ -130,12 +213,7 @@ def build_loop_constraint(ms: MapState, k, cand, match_idx, cfg: SystemConfig):
     role, src/sparsifier.cpp:219-274). Returns (meas, info, n_good, good)."""
     c = constants(cfg, ms.kf_pose.device)
     cam, Tcb = c["cam"], c["Tcb"]
-    j = match_idx.clamp(min=0).long()
-    m_loop = _row(ms.kf_obs_mp, cand)
-    ml = m_loop.clamp(min=0).long()
-    pair = (match_idx >= 0) & (m_loop >= 0) & ms.mp_valid[ml]
-    points = ms.mp_pos[ml]
-    uv_cur = _row(ms.kf_xy, k)[j]
+    _, pair, points, uv_cur = _loop_pairs(ms, k, cand, match_idx)
     huber = float(cfg.th_huber2) ** 0.5
     pose_opt, _chi, _n = solve_pose_only(_row(ms.kf_pose, k), points, uv_cur, pair, cam, Tcb,
                                          iters=20, huber_delta=huber)

@@ -140,7 +140,7 @@ def _schur_inputs(K, M, seed=0):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("K,M", [(4, 12), (8, 130), (24, 512), (48, 2048), (33, 1001),
-                                 (256, 8192)])
+                                 (256, 8192), (2, 1000), (2, 130), (2, 7)])
 def test_schur_kernel_matches_plain_on_card(card, K, M):
     """Within 1e-5 of the largest entry of the plain einsum pair evaluated
     in f64 on the same f32 inputs (the JAX package's kernel tolerance); the
@@ -647,3 +647,119 @@ def test_mesh_of_four_blocks_on_one_card_matches_one_block(card):
     assert float(i4["chi2"]) < 1e-3 * float(i4["chi2_init"])
     torch.testing.assert_close(p4, p1, rtol=0, atol=5e-4)
     torch.testing.assert_close(x4, x1, rtol=0, atol=2e-3)
+
+
+@pytest.mark.cuda
+def test_magnitude_measure_catches_a_dropped_point(card):
+    """``chip_smoke.schur_readings`` on a cancelling real system (the dry
+    run's damped local BA, K 64, M 2048, P 8: S ~4,000 times smaller than
+    its products' magnitude sum): K3 within the bound, while the kernel's
+    result on the system without its largest point reads over it, as the
+    control predicts."""
+    import chip_smoke as cs
+
+    c = tracking.constants(default_cfg()[0], card)
+    prob, _ = ba.synthetic_grid_ba(np.random.default_rng(0), 64, 2048, 8, c["cam"], c["Tcb"])
+    cfg = ba.BAConfig(iters=3)
+    _, _, Hpx, Hxx_inv, _, _ = ba.damped_system(prob, c["cam"], c["Tcb"], cfg,
+                                                torch.tensor(cfg.lm_init_lambda, device=card))
+    out = cs.schur_readings(Hpx, Hxx_inv)
+    assert cs.schur_readings_ok(out) and out["cancellation"] > 100, out
+    dropped = Hpx.clone()
+    dropped[:, :, out["control_point"]] = 0.0
+    want = K3.point_reduction_plain(Hpx.double(), Hxx_inv.double())
+    err = float((K3.point_reduction(dropped, Hxx_inv).double() - want).abs().max())
+    assert err / out["magnitude_scale"] > cs.SCHUR_CONTROL_MIN * cs.SCHUR_ABS_REL_MAX
+    # an empty system reduces to exact zeros, which the measure accepts
+    zero = cs.schur_readings(torch.zeros_like(Hpx), Hxx_inv)
+    assert zero["magnitude_scale"] == 0 and cs.schur_readings_ok(zero)
+
+
+@pytest.mark.cuda
+def test_harris_extraction_on_card_matches_cpu(card):
+    """``use_harris`` on the card: every output but ``response`` bitwise
+    the card's output without it, one K1 launch a frame, ``response``
+    within 1e-6 of max|R| from the CPU's on the same slots (read ~1e-7
+    by ``chip_smoke.py`` on an H100)."""
+    cfg, oc = default_cfg()
+    world = SyntheticWorld(cfg, n_landmarks=500, seed=0)
+    img = torch.from_numpy(world.render(world.circle_trajectory(352, radius=2.5)[5]))
+    harris = oc._replace(use_harris=True)
+    before = K1.fast_nms.launches
+    fg = OrbExtractor(harris, device=card)(img.to(card))
+    torch.cuda.synchronize()
+    assert K1.fast_nms.launches == before + 1
+    off = OrbExtractor(oc, device=card)(img.to(card))
+    for name in fg._fields:
+        if name != "response":
+            assert torch.equal(getattr(fg, name), getattr(off, name)), name
+    fc = OrbExtractor(harris, device="cpu")(img)
+    v = fc.valid
+    assert torch.equal(fg.valid.cpu(), v)
+    scale = float(fc.response[v].abs().max())
+    assert 0 < scale < 1e-3
+    torch.testing.assert_close(fg.response.cpu()[v], fc.response[v], rtol=0, atol=1e-6 * scale)
+
+
+@pytest.mark.cuda
+def test_remove_outlier_obs_on_card_matches_cpu(card, small_map):
+    """``localmap.remove_outlier_obs`` on the card, on a real map and with
+    one point moved 5 m: every table and ``n_bad`` bitwise the CPU's."""
+    from se2lam_tpu_torch import localmap
+    from se2lam_tpu_torch.mapstate import MapState
+
+    cfg, slam = small_map
+    ms = slam.ms
+    cur = int(torch.nonzero(ms.kf_valid).max())
+    victim = int(torch.nonzero(ms.mp_valid)[0])
+    bad = ms._replace(mp_pos=ms.mp_pos.index_add(
+        0, torch.tensor([victim]), torch.tensor([[5.0, 5.0, 3.0]])))
+    for m in (ms, bad):
+        want, n_want = localmap.remove_outlier_obs(m, cur, cfg)
+        got, n_got = localmap.remove_outlier_obs(MapState(*(t.to(card) for t in m)), cur, cfg)
+        assert int(n_got) == int(n_want)
+        for name in ("kf_obs_mp", "mp_obs_kf", "mp_obs_feat", "mp_n_obs", "mp_valid"):
+            assert torch.equal(getattr(got, name).cpu(), getattr(want, name)), name
+
+
+@pytest.mark.cuda
+def test_mini_ba_constraint_on_card_runs_the_kernel(card, small_map):
+    """``loopclose.build_loop_constraint_ba`` on the card between the map's
+    last two keyframes: 10 Schur launches at (2, N), a symmetric
+    information, and the constraint within the CPU's (pairs gated alike to
+    within 2, the pose within 1e-3, the information within 5e-2 of its
+    largest entry; on the loop scene ``chip_smoke.py`` reads 0 pairs,
+    3.05e-4 and 6.95e-4)."""
+    from se2lam_tpu_torch import loopclose
+    from se2lam_tpu_torch.mapstate import MapState
+
+    cfg, slam = small_map
+    ms = slam.ms
+    kfs = torch.nonzero(ms.kf_valid)[:, 0]
+    k, cand = int(kfs[-1]), int(kfs[-2])
+    midx, n_kp, _, _ = loopclose.verify_loop(ms, k, cand, 64,
+                                            generator=torch.Generator().manual_seed(0))
+    assert int(n_kp) >= 20
+    want = loopclose.build_loop_constraint_ba(ms, k, cand, midx, cfg)
+    gms = MapState(*(t.to(card) for t in ms))
+    shapes = []
+    orig = ba.schur_reduce
+
+    def spy(Hpp, bp, Hpx, Hxx_inv, bx):
+        shapes.append((Hpx.shape[0], Hpx.shape[2]))
+        return orig(Hpp, bp, Hpx, Hxx_inv, bx)
+
+    before = K3.point_reduction.launches
+    ba.schur_reduce = spy
+    try:
+        meas, info, n_good, _ = loopclose.build_loop_constraint_ba(gms, k, cand, midx.to(card),
+                                                                   cfg)
+    finally:
+        ba.schur_reduce = orig
+    torch.cuda.synchronize()
+    assert K3.point_reduction.launches == before + 10 and shapes == [(2, ms.N)] * 10
+    assert abs(int(n_good) - int(want[2])) <= 2
+    torch.testing.assert_close(meas.cpu(), want[0], rtol=0, atol=1e-3)
+    torch.testing.assert_close(info.cpu(), want[1], rtol=0,
+                               atol=5e-2 * float(want[1].abs().max()))
+    assert torch.equal(info, info.T)

@@ -14,9 +14,10 @@ import numpy as np
 import pytest
 import torch
 
-from se2lam_tpu.frontend.fast import fast_score_pair, nms3x3
+from se2lam_tpu.frontend.fast import fast_score, fast_score_pair, nms3x3
 from se2lam_tpu.frontend.pallas_fast import BAND, fast_nms_pallas
 from se2lam_tpu_torch.entry import default_cfg
+from se2lam_tpu_torch.frontend import fast as port_fast
 from se2lam_tpu_torch.frontend import fast_nms as port
 from se2lam_tpu_torch.frontend.orb import OrbExtractor
 
@@ -55,6 +56,18 @@ def test_plain_matches_xla_and_pallas(shape):
     for got, want in zip((hi, lo, raw), pal):
         np.testing.assert_array_equal(got[inner], np.asarray(want)[inner])
     assert (hi > 0).sum() > 10 and (lo > 0).sum() > (hi > 0).sum()
+
+
+@pytest.mark.parametrize("shape,threshold", [((240, 320), 20.0), ((120, 128), 7.0),
+                                             ((200, 266), 12.5)])
+def test_single_threshold_score_matches_xla(shape, threshold):
+    """``fast_score`` (one threshold, its own margin) bitwise the JAX
+    package's over the whole map."""
+    img = sprinkled_image(np.random.default_rng(2), *shape)
+    got = port_fast.fast_score(torch.from_numpy(img), threshold).numpy()
+    want = np.asarray(fast_score(jnp.asarray(img), threshold))
+    np.testing.assert_array_equal(got, want)
+    assert (got > 0).sum() > 10
 
 
 def test_band_seams_match_pallas():

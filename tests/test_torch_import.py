@@ -28,6 +28,7 @@ import se2lam_tpu_torch.io.trajectory, se2lam_tpu_torch.io.mapstorage
 import se2lam_tpu_torch.vocab, se2lam_tpu_torch.solver.poseonly, se2lam_tpu_torch.loopclose
 import se2lam_tpu_torch.frontend.windowed_match, se2lam_tpu_torch.localizer
 import se2lam_tpu_torch.solver.posegraph
+import se2lam_tpu_torch.solver, se2lam_tpu_torch.solver.sparsifier, se2lam_tpu_torch.frontend.fast
 import se2lam_tpu_torch.utils, se2lam_tpu_torch.utils.chunking, se2lam_tpu_torch.utils.prefetch
 import se2lam_tpu_torch.parallel, se2lam_tpu_torch.parallel.fleet
 import se2lam_tpu_torch.parallel.fleet_localize

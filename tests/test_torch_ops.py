@@ -3,7 +3,9 @@ package's, on the same random batched f32 inputs made with numpy.
 
 Tolerance: 1e-5 relative to the largest magnitude of the reference output
 (f32 carries ~6e-8; the two libraries may order sums and pick sin/cos
-implementations differently, which moves the last few ulps).
+implementations differently, which moves the last few ulps). The SO(3)
+and SE(3) logs run on random rotations, on angles below 1e-6 rad and at
+π, where both take the small-angle series of θ/(2 sin θ).
 """
 import zlib
 
@@ -42,6 +44,27 @@ def rigid(rng, batch=16):
     R[:, 0, 0], R[:, 0, 2], R[:, 1, 1] = np.cos(th), np.sin(th), 1.0
     R[:, 2, 0], R[:, 2, 2] = -np.sin(th), np.cos(th)
     return R, t
+
+
+def twists(rng, batch=16):
+    """[rho, phi] twists with rotation angles in (0, 3) rad."""
+    xi = rng.normal(size=(batch, 6))
+    axis = xi[:, 3:] / np.linalg.norm(xi[:, 3:], axis=1, keepdims=True)
+    xi[:, 3:] = axis * rng.uniform(0.05, 3.0, (batch, 1))
+    return xi.astype(np.float32)
+
+
+def axis_rotations(rng, theta, batch=16):
+    """Rotation matrices by angles ``theta`` about random axes, made in
+    f64 (Rodrigues) and rounded to f32."""
+    a = rng.normal(size=(batch, 3))
+    a /= np.linalg.norm(a, axis=1, keepdims=True)
+    th = np.broadcast_to(np.asarray(theta, np.float64), (batch,))[:, None, None]
+    K = np.zeros((batch, 3, 3))
+    K[:, 0, 1], K[:, 0, 2], K[:, 1, 2] = -a[:, 2], a[:, 1], -a[:, 0]
+    K = K - K.transpose(0, 2, 1)
+    R = np.eye(3) + np.sin(th) * K + (1 - np.cos(th)) * (K @ K)
+    return R.astype(np.float32)
 
 
 def two_views(rng, n=64):
@@ -87,6 +110,29 @@ CASES = {
                 lambda m, R, t: m["se3"].inv(m["se3"].make_rt(R, t))),
     "se3.apply": (lambda r: list(rigid(r)) + [r.normal(size=(16, 3)).astype(np.float32)],
                   lambda m, R, t, p: m["se3"].apply(m["se3"].make_rt(R, t), p)),
+    "se3.so3_log": (lambda r: [axis_rotations(r, r.uniform(0.01, 3.0, 16))],
+                    lambda m, R: m["se3"].so3_log(R)),
+    "se3.so3_log_small_angle": (lambda r: [axis_rotations(r, r.uniform(0.0, 1e-6, 16))],
+                                lambda m, R: m["se3"].so3_log(R)),
+    "se3.so3_log_at_pi": (lambda r: [axis_rotations(r, np.pi)],
+                          lambda m, R: m["se3"].so3_log(R)),
+    "se3.so3_log_of_exp": (lambda r: [twists(r)[:, 3:]],
+                           lambda m, p: m["se3"].so3_log(m["se3"].so3_exp(p))),
+    "se3.so3_left_jacobian": (
+        lambda r: [np.concatenate([twists(r)[:, 3:], r.normal(0, 1e-5, (4, 3))]).astype(
+            np.float32)],
+        lambda m, p: m["se3"]._so3_left_jacobian(p)),
+    "se3.se3_exp": (lambda r: [twists(r)], lambda m, xi: m["se3"].se3_exp(xi)),
+    "se3.se3_exp_small_angle": (
+        lambda r: [np.concatenate([r.normal(size=(16, 3)), r.normal(0, 1e-7, (16, 3))],
+                                  1).astype(np.float32)],
+        lambda m, xi: m["se3"].se3_exp(xi)),
+    "se3.se3_log": (lambda r: list(rigid(r)),
+                    lambda m, R, t: m["se3"].se3_log(m["se3"].make_rt(R, t))),
+    "se3.se3_log_of_exp": (lambda r: [twists(r)],
+                           lambda m, xi: m["se3"].se3_log(m["se3"].se3_exp(xi))),
+    "se3.adjoint": (lambda r: list(rigid(r)),
+                    lambda m, R, t: m["se3"].adjoint(m["se3"].make_rt(R, t))),
     "linalg.inv_psd_small": (lambda r: [pd(r, 9)], lambda m, M: m["lin"].inv_psd_small(M)),
     "linalg.inv2x2": (lambda r: [pd(r, 2)], lambda m, M: m["lin"].inv2x2(M)),
     "linalg.inv3x3": (lambda r: [pd(r, 3)], lambda m, M: m["lin"].inv3x3(M)),
@@ -151,3 +197,17 @@ def test_check_parallax_gate_matches_jax():
         got = ttri.check_parallax(torch.zeros(3), torch.from_numpy(o2),
                                   torch.from_numpy(pts), deg).numpy()
         np.testing.assert_array_equal(got, want)
+
+
+def test_se3_exp_and_log_round_trip():
+    """The port's logs invert its exps: a twist with a rotation angle in
+    (0, 3) rad comes back within 1e-4 (f32, the left Jacobian's solve),
+    and SE(3) matrices come back within 1e-5."""
+    rng = np.random.default_rng(11)
+    xi = torch.from_numpy(twists(rng, 64))
+    np.testing.assert_allclose(tse3.se3_log(tse3.se3_exp(xi)).numpy(), xi.numpy(), atol=1e-4)
+    np.testing.assert_allclose(tse3.so3_log(tse3.so3_exp(xi[:, 3:])).numpy(), xi[:, 3:].numpy(),
+                               atol=1e-4)
+    T = tse3.make_rt(*map(torch.from_numpy, rigid(rng, 64)))
+    np.testing.assert_allclose(tse3.se3_exp(tse3.se3_log(T)).numpy(), T.numpy(), atol=1e-5)
+    assert torch.isfinite(tse3.so3_log(torch.eye(3))).all()

@@ -12,6 +12,12 @@
   of magnitude ~5e4, whose ulp is 4e-3; no code reads it as a number).
 - Fed JAX's own level image, the port's per-level selection and patch code
   give the same integer keypoint positions, isolating the pyramid.
+- With Harris rescoring (``use_harris``) every output but ``response`` is
+  bitwise the port's own output without it, and ``forward_batch`` bitwise
+  ``forward``; against JAX the outputs hold the tolerances above, and
+  ``response`` (now R ~ 1e-6, the 1/(4·7·255)² scale) is within 1e-6 of
+  max|R|: the Harris sums are the same adds in the same order, but XLA's
+  fused products round ~1.5e-7 of max|R| apart from torch's.
 """
 import dataclasses
 
@@ -184,6 +190,8 @@ def test_configs_agree_field_by_field():
     assert dataclasses.asdict(tcfg) == dataclasses.asdict(jcfg)
     assert toc._asdict() == {k: v for k, v in joc._asdict().items()
                              if k in toc._fields}
+    # the JAX config's one field the port lacks is its TPU lowering switch
+    assert set(joc._fields) - set(toc._fields) == {"use_pallas_fast"}
 
 
 @pytest.mark.parametrize("n_levels", [9, 10])
@@ -211,3 +219,55 @@ def test_extractor_matches_jax_past_eight_levels(n_levels):
     np.testing.assert_allclose(ft.xy[v], fj.xy[v], rtol=0, atol=1e-4)
     np.testing.assert_allclose(ft.angle[v], fj.angle[v], rtol=0, atol=1e-5)
     np.testing.assert_allclose(ft.response[v], fj.response[v], rtol=0, atol=1e-2)
+
+
+HARRIS_RTOL = 1e-6   # of max|R| (module docstring)
+
+
+@pytest.mark.parametrize("shape", [(120, 160), (37, 53), (240, 320)])
+def test_harris_response_matches_jax(shape):
+    """``_harris_response`` alone on a random image, at positions that run
+    past the bottom and right edges (both clamp there)."""
+    H, W = shape
+    rng = np.random.default_rng(H)
+    img = rng.uniform(0, 255, shape).astype(np.float32)
+    ys, xs = rng.integers(0, H + 6, 400), rng.integers(0, W + 6, 400)
+    want = np.asarray(jax.jit(jorb._harris_response)(jnp.asarray(img), jnp.asarray(ys),
+                                                     jnp.asarray(xs)))
+    got = torb._harris_response(torch.from_numpy(img), torch.from_numpy(ys),
+                                torch.from_numpy(xs)).numpy()
+    np.testing.assert_allclose(got, want, rtol=0, atol=HARRIS_RTOL * np.abs(want).max())
+
+
+@pytest.mark.parametrize("kw", [dict(width=160, height=120, n_features=300, n_levels=3),
+                                dict(width=320, height=240, n_features=300, n_levels=3)],
+                         ids=["160x120", "320x240"])
+def test_harris_extractor_matches_jax(kw):
+    jcfg, joc = _default_cfg(**kw)
+    _, toc = default_cfg(**kw)
+    joc, toc_h = joc._replace(use_harris=True), toc._replace(use_harris=True)
+    world = JaxWorld(jcfg, n_landmarks=500, seed=0)
+    gt = world.circle_trajectory(352, radius=2.5)
+    imgs = torch.from_numpy(np.stack([world.render(gt[i]) for i in (0, 5, 9)]))
+    ext, ext_off = torb.OrbExtractor(toc_h, device="cpu"), torb.OrbExtractor(toc, device="cpu")
+    batch = ext.forward_batch(imgs)
+    jext = jax.jit(jorb.make_extractor(joc))
+    for i, img in enumerate(imgs):
+        ft, off = ext(img), ext_off(img)
+        for k in torb.OrbFeatures._fields:
+            assert torch.equal(getattr(batch, k)[i], getattr(ft, k)), k
+            if k != "response":
+                assert torch.equal(getattr(ft, k), getattr(off, k)), k
+        fj = jax.tree.map(np.asarray, jext(jnp.asarray(img.numpy())))
+        ft = jorb.OrbFeatures(*[t.numpy() for t in ft])
+        v = fj.valid
+        assert v.sum() > 0.8 * v.size
+        np.testing.assert_array_equal(ft.valid, fj.valid)
+        np.testing.assert_array_equal(ft.octave, fj.octave)
+        np.testing.assert_array_equal(ft.desc_bits[v], fj.desc_bits[v])
+        np.testing.assert_allclose(ft.xy[v], fj.xy[v], rtol=0, atol=1e-4)
+        np.testing.assert_allclose(ft.angle[v], fj.angle[v], rtol=0, atol=1e-5)
+        scale = np.abs(fj.response[v]).max()
+        assert 0 < scale < 1e-3
+        np.testing.assert_allclose(ft.response[v], fj.response[v], rtol=0,
+                                   atol=HARRIS_RTOL * scale)
