@@ -178,7 +178,22 @@ a nonzero exit if it fails:
    consistent and bitwise the CPU's; the extractor with Harris rescoring
    on 4 bench frames: every output but ``response`` bitwise the output
    without it, ``forward_batch`` bitwise ``forward``, the same K1
-   launches, ``response`` within HARRIS_RTOL of the CPU's.
+   launches, ``response`` within HARRIS_RTOL of the CPU's;
+24. slice 9, outside deterministic mode: the mapping phase's 60 frames
+   through the split feed (``receive_odo_data``/``receive_img_data``, the
+   order alternating), ``get_current_vehicle_pose()`` after each pair
+   bitwise the counted ``process`` run's pose on the same generator, the
+   same keyframes and K1/K2/K3 launches, then ``request_finish``,
+   ``wait_for_finish`` and ``save_map``/``load_map`` bitwise; F7: phase
+   7's real local BA, the dense pose graph at K = 256 and the loop phase's
+   first joint GBA at (256, 8192), each 5 times on the same inputs, every
+   run bitwise the first; the 320x240 barrel-distortion scene of the JAX
+   package's ``tests/test_distortion_e2e.py`` (36 frames) on the card and
+   on the CPU with the same RANSAC draws: the same keyframes, ATE under 0.3
+   and within 0.02 m of the CPU's, a K1 launch a frame; the 160x120 vision
+   blackout of ``tests/test_vision_loss.py`` (frames 12-17 blank, or
+   noise): finite poses, a keyframe after it, live and corrected ATE under
+   0.3.
 In the child of phases 13-14 also the runtime: ``parallel.runtime`` over
 NCCL at world size 1 holding the 4 blocks, whose psum and distributed pose
 graph equal the in-process mesh's bitwise (deterministic mode). Phases 15
@@ -199,6 +214,7 @@ It prints the kernels' JSON line before the last line, and last
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import math
 import os
@@ -383,6 +399,27 @@ MINI_BA_INFO_RTOL = 5e-3        # of max|info|
 HARRIS_RTOL = 1e-6
 HARRIS_FRAMES = (0, 5, 10, 15)  # main-path frames of the bench world
 OUTLIER_SHIFT = (5.0, 5.0, 3.0)  # the JAX package's tests/test_outliers.py corruption
+# slice 9 (phase 24): the split feed; F7, the solvers' sums repeatable on the
+# card outside deterministic mode; lens distortion and a vision blackout
+ODOSLAM_DIR = MAP_DIR.parent / "odoslam_map"
+F7_REPEATS = 5
+F7_PG_K = 256                   # phase_runtime's pose graph
+F7_PG_LOOPS = ((0, F7_PG_K - 30), (10, F7_PG_K - 5), (40, F7_PG_K - 1))
+F7_PG_ITERS = 20
+SMALL_FRAMES = 36               # tests/test_distortion_e2e.py, tests/test_vision_loss.py
+SMALL_ATE_MAX = 0.3             # those tests' bound
+SMALL_ODO_NOISE = (0.002, 0.001, 0.001)
+DIST_COEFFS = (-0.25, 0.08, 0.0005, -0.0005, 0.0)   # their noticeable barrel
+DIST_ATE_TOL = 0.02             # card against the port on the CPU (tests/test_torch_system.py)
+BLACKOUT = range(12, 18)        # 6 unusable frames
+BLACKOUT_TCB = np.array([[0, 0, 1, 0], [-1, 0, 0, 0], [0, -1, 0, 0.5], [0, 0, 0, 1]],
+                        np.float32)
+# local BA's ms a keyframe before and after F7's repair (medians of 12
+# mapping runs each, the parent's port and the repaired one in turns, parent
+# first and last: examples/torch_check_spread.py --ba-ms 3 on an H100 80GB
+# HBM3 at 700 W); ``index_put_(accumulate=True)`` in place of the
+# segment sum read 112.4 against 88.1 and was not adopted
+F7_IN_TURNS = dict(parent_ms=98.22, repaired_ms=89.69, runs=12)
 
 
 def log(msg):
@@ -922,11 +959,11 @@ def phase_k2():
     return max(errs.values())
 
 
-def phase_save_reload(slam):
+def phase_save_reload(slam, path=MAP_DIR):
     """save_map, then load_map on the card: every field and the vocabulary
     bitwise equal."""
-    vocab = slam.save_map(str(MAP_DIR))
-    ms, vocab2, info = load_map(str(MAP_DIR))
+    vocab = slam.save_map(str(path))
+    ms, vocab2, info = load_map(str(path))
     if vocab is None or vocab2 is None:
         raise SystemExit("chip_smoke: save_map wrote no vocabulary")
     pairs = [(f"ms_{n}", getattr(slam.ms, n), getattr(ms, n)) for n in MapState._fields]
@@ -1326,7 +1363,7 @@ def phase_loop(world):
     # the Schur kernel on the first joint GBA's real damped system
     joint = joint_schur_check(joint_in.first, "the loop phase's joint GBA")
     return dict(k1=k1, k2=k2, k3=k3, k3_joint=n_joint, run=run, joint=joint, draws=runs,
-                closing=closing)
+                closing=closing, joint_first=joint_in.first)
 
 
 @contextlib.contextmanager
@@ -2820,6 +2857,212 @@ def phase_slice8(cfg, oc, extract, world, gt, closing, ms):
                 harris=phase_harris(oc, extract, world, gt))
 
 
+def phase_odoslam(cfg, world, ref, launches):
+    """The mapping phase's frames through the split feed
+    (``receive_odo_data``/``receive_img_data``, the odometry first on even
+    frames, the image first on odd ones; timestamps ignored), outside
+    deterministic mode: after each pair ``get_current_vehicle_pose()``
+    bitwise the pose of the mapping phase's counted ``process`` run on the
+    same generator (seed 0), the same keyframe frames and the same K1, K2
+    and K3 launches; then ``request_finish``, ``wait_for_finish`` and a
+    ``save_map``/``load_map`` round trip, bitwise."""
+    gt = world.circle_trajectory(352, radius=2.5)[:MAP_FRAMES]
+    odo = world.odometry(gt, noise=ODO_NOISE, seed=1)
+    imgs = [torch.from_numpy(world.render(p)).to("cuda") for p in gt]
+    slam = SlamSystem(cfg, enable_loops=False,
+                      generator=torch.Generator(device="cuda").manual_seed(0))
+    K1.fast_nms.launches = K2.windowed_top2.launches = K3.point_reduction.launches = 0
+    poses = []
+    for i, (img, o) in enumerate(zip(imgs, odo)):
+        stamp = i / CAMERA_FPS
+        if i % 2 == 0:
+            slam.receive_odo_data(*o, stamp)
+            slam.receive_img_data(img, stamp)
+        else:
+            slam.receive_img_data(img, stamp)
+            slam.receive_odo_data(*o, stamp)
+        poses.append(slam.get_current_vehicle_pose())
+    got = (K1.fast_nms.launches, K2.windowed_top2.launches, K3.point_reduction.launches)
+    want = np.asarray([p for _, p in ref.trajectory])
+    poses = np.asarray(poses)
+    slam.request_finish()
+    slam.wait_for_finish()
+    out = dict(frames=slam.frame_id, kf_frames=slam.kf_frame_ids, launches=got,
+               mapping_launches=launches, deterministic_mode=torch.are_deterministic_algorithms_enabled(),
+               shape=list(poses.shape), poses_bitwise=bool(np.array_equal(poses, want)),
+               max_pose_diff=float(np.abs(poses - want).max()) if poses.shape == want.shape
+               else None, finished=slam._finished)
+    log("OdoSLAM feed: " + json.dumps(out))
+    if not (out["poses_bitwise"] and slam.frame_id == MAP_FRAMES and got == tuple(launches)
+            and slam.kf_frame_ids == ref.kf_frame_ids and slam._finished
+            and not out["deterministic_mode"]):
+        raise SystemExit("chip_smoke: the split feed differs from process on the same "
+                         "generator, or its launches from the mapping phase's")
+    phase_save_reload(slam, ODOSLAM_DIR)
+    return dict(out, k1_launches=got[0], k2_launches=got[1], k3_launches=got[2])
+
+
+def repeat_diff(fn, n=F7_REPEATS):
+    """``fn()`` ``n`` times: whether every result equals the first bitwise,
+    the largest difference from it, and each call's ms (CUDA events)."""
+    outs, times = [], []
+    for _ in range(n):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        outs.append(tuple(fn()))
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    pairs = [(x, y) for o in outs[1:] for x, y in zip(outs[0], o)]
+    return dict(bitwise=all(torch.equal(x, y) for x, y in pairs),
+                max_diff=max(float((x.double() - y.double()).abs().max()) for x, y in pairs
+                             if x.is_floating_point()),
+                ms=times)
+
+
+def f7_repeats(cfg, slam, joint_first, n=F7_REPEATS):
+    """F7: phase 7's real local BA (the window of the SLAM run's last
+    keyframe, K3 at (48, 2048)), the dense pose graph at K = 256 and the
+    loop phase's first joint GBA (K3 at (256, 8192)), each run ``n`` times
+    on the same inputs outside deterministic mode (``repeat_diff``)."""
+    from se2lam_tpu_torch.solver.posegraph import solve_pose_graph, synthetic_pose_graph
+
+    kf = slam._ref_kf_host
+    pg = synthetic_pose_graph(np.random.default_rng(0), F7_PG_K, loop_pairs=F7_PG_LOOPS,
+                              device="cuda")
+    (ms_j, cfg_j), kw = joint_first[0][:2], joint_first[1]
+    solves = dict(
+        local_ba=lambda: localmap.run_local_ba(slam.ms, kf, cfg)[0],
+        pose_graph=lambda: solve_pose_graph(pg, iters=F7_PG_ITERS)[:1],
+        joint_gba=lambda: loopclose.run_global_ba_joint(ms_j, cfg_j, **kw)[0])
+    return {name: repeat_diff(fn, n) for name, fn in solves.items()}
+
+
+def phase_f7(cfg, slam, joint_first, run):
+    """F7 on the card: ``f7_repeats``, every solve bitwise its first run,
+    outside deterministic mode; beside it this run's local-BA ms a
+    keyframe and the in-turn measurement's."""
+    if torch.are_deterministic_algorithms_enabled():
+        raise SystemExit("chip_smoke: F7 must be checked outside deterministic mode")
+    out = f7_repeats(cfg, slam, joint_first)
+    log("F7 local BA ms a keyframe: " + json.dumps(dict(
+        this_run=run["local_ba_ms_per_kf"], in_turns=F7_IN_TURNS)))
+    log(f"F7 ({F7_REPEATS} runs each, outside deterministic mode): " + json.dumps(out))
+    bad = [k for k, v in out.items() if not v["bitwise"] or v["max_diff"] != 0.0]
+    if bad:
+        raise SystemExit(f"chip_smoke: F7: {bad} differ between runs on the same inputs")
+    return out
+
+
+def distortion_cfg():
+    """The 320x240 barrel scene of tests/test_distortion_e2e.py."""
+    cfg, oc = default_cfg(width=320, height=240, n_features=256, n_levels=2)
+    return cfg.replace(
+        fx=260.0, fy=260.0, cx=160.0, cy=120.0, dist=DIST_COEFFS,
+        min_frames_between_kf=2, max_frames_between_kf=8, local_iter=6,
+        cap=dataclasses.replace(cfg.cap, n_features=oc.n_slots, max_kfs=64, max_mps=4096,
+                                local_kfs=8, local_ref_kfs=8, local_mps=512, ransac_trials=64))
+
+
+def blackout_cfg():
+    """The 160x120 scene of tests/test_vision_loss.py."""
+    cfg, oc = default_cfg(width=160, height=120, n_features=128, n_levels=2)
+    return cfg.replace(
+        fx=130.0, fy=130.0, cx=80.0, cy=60.0, Tbc=tuple(np.linalg.inv(BLACKOUT_TCB).ravel()),
+        min_frames_between_kf=1, max_frames_between_kf=4, local_iter=4,
+        cap=dataclasses.replace(cfg.cap, n_features=oc.n_slots, max_kfs=24, max_mps=1024,
+                                local_kfs=6, local_ref_kfs=6, local_mps=256, ransac_trials=32))
+
+
+def small_run(cfg, frames, device, gumbels=None):
+    """``SlamSystem(cfg, enable_loops=False)`` over (image, odometry) pairs
+    on ``device``: tracking's draws from ``gumbels`` (one a frame) or the
+    system's own generator; its trajectory, finite at every frame."""
+    slam = SlamSystem(cfg, enable_loops=False, device=device,
+                      generator=torch.Generator(device=device).manual_seed(0))
+    for i, (img, o) in enumerate(frames):
+        pose = slam.process(img, o, gumbel=None if gumbels is None else gumbels[i])
+        if not np.isfinite(pose).all():
+            raise SystemExit(f"chip_smoke: frame {i} on {device}: a pose is not finite")
+    return slam
+
+
+def phase_distortion():
+    """The barrel scene on the card and the port on the CPU, both on the
+    same RANSAC draws (``tracking.draw_track_noise`` from a seeded CPU
+    generator): the same keyframe frames, a K1 launch a frame, the JAX
+    test's asserts, ATE within DIST_ATE_TOL of the CPU's."""
+    cfg = distortion_cfg()
+    world = SyntheticWorld(cfg, n_landmarks=600, room=10.0, seed=4)
+    frames = list(world.sequence(SMALL_FRAMES, noise=SMALL_ODO_NOISE))
+    g = torch.Generator().manual_seed(0)
+    gumbels = [tracking.draw_track_noise(g, cfg) for _ in frames]
+    K1.fast_nms.launches = K2.windowed_top2.launches = K3.point_reduction.launches = 0
+    card = small_run(cfg, frames, "cuda", gumbels)
+    k1, k2, k3 = K1.fast_nms.launches, K2.windowed_top2.launches, K3.point_reduction.launches
+    cpu = small_run(cfg, frames, "cpu", gumbels)
+    ate = {}
+    for name, s in (("card", card), ("cpu", cpu)):
+        est = np.asarray([p for _, p in s.trajectory])
+        ate[name] = ate_se2(est[:, :2], world.gt[: len(est), :2])[0]
+    out = dict(undistort=card._undistort, kf_frames=card.kf_frame_ids,
+               kf_frames_cpu=cpu.kf_frame_ids, n_kf=card.n_keyframes(),
+               n_mp=card.n_map_points(), n_mp_cpu=cpu.n_map_points(), ate=ate["card"],
+               ate_cpu=ate["cpu"], k1_launches=k1, k2_launches=k2, k3_launches=k3)
+    log("distortion: " + json.dumps(out))
+    if not (card._undistort and card.kf_frame_ids == cpu.kf_frame_ids and k1 == SMALL_FRAMES
+            and k3 == cfg.local_iter * card.n_local_ba and k2 >= 1
+            and out["n_kf"] >= 3 and out["n_mp"] > 40 and ate["card"] < SMALL_ATE_MAX
+            and abs(ate["card"] - ate["cpu"]) < DIST_ATE_TOL):
+        raise SystemExit("chip_smoke: the distortion run failed its checks")
+    return out
+
+
+def phase_blackout():
+    """Both flavors of tests/test_vision_loss.py on the card (frames 12-17
+    blank, or noise from ``default_rng(9)``): finite poses, a keyframe
+    after the blackout, live and corrected ATE under SMALL_ATE_MAX, a K1
+    launch a frame."""
+    cfg = blackout_cfg()
+    out = {}
+    for flavor in ("blank", "noise"):
+        world = SyntheticWorld(cfg, n_landmarks=300, room=10.0, seed=5)
+        rng = np.random.default_rng(9)
+        frames = []
+        for i, (img, o) in enumerate(world.sequence(SMALL_FRAMES, noise=SMALL_ODO_NOISE)):
+            if i in BLACKOUT:
+                img = (np.zeros_like(img) if flavor == "blank"
+                       else rng.integers(0, 255, img.shape).astype(img.dtype))
+            frames.append((img, o))
+        K1.fast_nms.launches = K2.windowed_top2.launches = K3.point_reduction.launches = 0
+        slam = small_run(cfg, frames, "cuda")
+        gt = np.asarray(world.gt[:SMALL_FRAMES])
+        est = np.asarray([p for _, p in slam.trajectory])
+        corr = slam.corrected_trajectory()
+        out[flavor] = dict(
+            kf_frames=slam.kf_frame_ids, k1_launches=K1.fast_nms.launches,
+            k2_launches=K2.windowed_top2.launches, k3_launches=K3.point_reduction.launches,
+            n_local_ba=slam.n_local_ba,
+            ate=ate_se2(est[:, :2], gt[:, :2])[0],
+            ate_corrected=ate_se2(corr[:, 1:3], gt[corr[:, 0].astype(int), :2])[0],
+            corrected_finite=bool(np.isfinite(corr).all()))
+    log("blackout: " + json.dumps(out))
+    for flavor, r in out.items():
+        if not (max(r["kf_frames"]) > BLACKOUT.stop and r["ate"] < SMALL_ATE_MAX
+                and r["ate_corrected"] < SMALL_ATE_MAX and r["corrected_finite"]
+                and r["k1_launches"] == SMALL_FRAMES
+                and r["k3_launches"] == cfg.local_iter * r["n_local_ba"]):
+            raise SystemExit(f"chip_smoke: the {flavor} blackout failed its checks")
+    return out
+
+
+def phase_slice9(cfg, world, slam, run, launches, joint_first):
+    """Slice 9: the split feed, F7, distortion, the blackout."""
+    return dict(odoslam=phase_odoslam(cfg, world, slam, launches),
+                f7=phase_f7(cfg, slam, joint_first, run), distortion=phase_distortion(),
+                blackout=phase_blackout())
+
+
 def timed(name, fn, *args):
     """Run one phase and print its seconds."""
     t0 = time.perf_counter()
@@ -2862,6 +3105,13 @@ def main():
     mesh_solvers = child["mesh_solvers"]
     mesh_run = timed("mesh session", phase_mesh_session, loop_world, mesh, lp["run"])
     slice8 = timed("slice 8", phase_slice8, cfg, oc, extract, world, gt, lp["closing"], ms)
+    slice9 = timed("slice 9", phase_slice9, cfg, world, slam, run, (k1_map, k2_map, k3_map),
+                   lp["joint_first"])
+    slice9_launches = {name: dict(
+        launches_odoslam=slice9["odoslam"][f"k{i}_launches"],
+        launches_distortion=slice9["distortion"][f"k{i}_launches"],
+        launches_blackout={f: v[f"k{i}_launches"] for f, v in slice9["blackout"].items()})
+        for i, name in ((1, "k1"), (2, "k2"), (3, "k3"))}
     slice6 = {name: {f"launches_{p}": v[f"k{i}_launches"] for p, v in (
         ("dataset", data), ("live_chunked", live["chunked"]), ("live_pipelined", live["pipelined"]),
         ("merge_mapping", merge["mapping"]), ("merge", merge["runs"][0]))}
@@ -2887,7 +3137,7 @@ def main():
         launches_mesh_solvers=mesh_solvers["k1_launches"],
         launches_mesh_session=mesh_run["run"]["k1_launches"],
         launches_harris=slice8["harris"]["k1_launches"],
-        launches_harris_batch=slice8["harris"]["k1_launches_batch"],
+        launches_harris_batch=slice8["harris"]["k1_launches_batch"], **slice9_launches["k1"],
     )
     loc, glob = ts[LOCAL_BA_SHAPE], ts[GLOBAL_BA_SHAPE]
     schur_kernel = dict(
@@ -2914,7 +3164,8 @@ def main():
         launches_mini_ba=slice8["mini_ba"]["k3_launches"],
         mini_ba_shape_KM=slice8["mini_ba"]["shape_KM"],
         mini_ba=dict(ts[MINI_BA_SHAPE], shape_KM=MINI_BA_SHAPE),
-        mini_ba_real=slice8["mini_ba"]["k3"],
+        mini_ba_real=slice8["mini_ba"]["k3"], **slice9_launches["k3"],
+        f7={name: dict(v, ms=median(v["ms"])) for name, v in slice9["f7"].items()},
     )
     match_kernel = dict(
         name="windowed_top2", route="cuda", source="se2lam_tpu_torch/csrc/windowed_top2.cu",
@@ -2932,7 +3183,7 @@ def main():
         launches_merged_fleet_per_chunk=merge["fleet"]["k2_launches"],
         launches_live_localizer=child["live"]["localizer"]["k2_launches"], **slice6["k2"],
         launches_mesh_solvers=mesh_solvers["k2_launches"],
-        launches_mesh_session=mesh_run["run"]["k2_launches"],
+        launches_mesh_session=mesh_run["run"]["k2_launches"], **slice9_launches["k2"],
     )
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [kernel, schur_kernel, match_kernel]}), flush=True)

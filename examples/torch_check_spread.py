@@ -30,11 +30,24 @@ and the 2-KF mini-BA constraint on each one's first closure: twice on the
 card, once on the CPU (``chip_smoke.mini_ba_cpu_diff``), and K3's readings
 on its first system.
 
+``--ba-ms N``: the mapping phase's SLAM loop (draws 0..N-1, after a
+12-frame warm-up): local BA's and the insertion's ms a keyframe (the run's
+medians, CUDA events) and frames/s, then ``localmap.run_local_ba`` on the
+run's last window 20 times (the median ms). Run it with a parent's port
+and this one in turns (parent first and last) to price a change to local
+BA.
+
+``--repeat N`` (F7): ``chip_smoke.f7_repeats``: phase 7's real local BA,
+the dense pose graph at K = 256 and the loop phase's first joint GBA, each
+N times on the same inputs outside deterministic mode, and the largest
+difference between the runs.
+
 One JSON line a repetition::
 
     CUBLAS_WORKSPACE_CONFIG=:4096:8 python3 examples/torch_check_spread.py --ba 4
     python3 examples/torch_check_spread.py --merge 4 --tag parent
     python3 examples/torch_check_spread.py --mini-ba 5
+    python3 examples/torch_check_spread.py --ba-ms 2 --repeat 5 --tag change
 """
 from __future__ import annotations
 
@@ -50,7 +63,7 @@ import torch
 sys.path.insert(0, os.getcwd())
 
 import chip_smoke as cs  # noqa: E402
-from se2lam_tpu_torch import loopclose, mapmerge, tracking  # noqa: E402
+from se2lam_tpu_torch import localmap, loopclose, mapmerge, tracking  # noqa: E402
 from se2lam_tpu_torch.io.synthetic import SyntheticWorld  # noqa: E402
 from se2lam_tpu_torch.ops.camera import CameraModel  # noqa: E402
 from se2lam_tpu_torch.solver import ba  # noqa: E402
@@ -92,11 +105,7 @@ def ba_spread(n, tag):
                     k3_single=readings(*single["kept"][0]),
                     k3_blocks=[readings(*b) for b in blocks["kept"]])), flush=True)
 
-    cfg, _ = cs.default_cfg()
-    world = SyntheticWorld(cfg, n_landmarks=500, seed=0)
-    gt = world.circle_trajectory(352, radius=2.5)[:cs.MAP_FRAMES]
-    odo = world.odometry(gt, noise=cs.ODO_NOISE, seed=1)
-    imgs = [torch.from_numpy(world.render(p)).to(dev) for p in gt]
+    cfg, imgs, odo, gt = mapping_scene()
     for rep in range(n):
         slam, _ = cs.run_slam(cfg, imgs, odo, gt, seed=rep)
         print("LOCAL_BA " + json.dumps(dict(tag=tag, rep=rep, kf=slam._ref_kf_host,
@@ -143,11 +152,46 @@ def mini_ba_spread(n, tag):
         print("MINI_BA " + json.dumps(out), flush=True)
 
 
+def mapping_scene():
+    cfg, _ = cs.default_cfg()
+    world = SyntheticWorld(cfg, n_landmarks=500, seed=0)
+    gt = world.circle_trajectory(352, radius=2.5)[:cs.MAP_FRAMES]
+    odo = world.odometry(gt, noise=cs.ODO_NOISE, seed=1)
+    imgs = [torch.from_numpy(world.render(p)).to("cuda") for p in gt]
+    return cfg, imgs, odo, gt
+
+
+def ba_ms(n, tag):
+    cfg, imgs, odo, gt = mapping_scene()
+    cs.run_slam(cfg, imgs[:12], odo[:12], gt[:12], seed=99)
+    for rep in range(n):
+        slam, run = cs.run_slam(cfg, imgs, odo, gt, seed=rep)
+        kf = slam._ref_kf_host
+        window = cs.events_ms(lambda: localmap.run_local_ba(slam.ms, kf, cfg), reps=20, warmup=3)
+        print("BA_MS " + json.dumps(dict(
+            tag=tag, rep=rep, local_ba_ms_per_kf=run["local_ba_ms_per_kf"],
+            insert_ms_per_kf=run["insert_ms_per_kf"], frames_per_s=run["frames_per_s"],
+            n_local_ba=run["n_local_ba"], run_local_ba_ms=window)), flush=True)
+
+
+def repeat(n, tag):
+    cfg, imgs, odo, gt = mapping_scene()
+    slam, _ = cs.run_slam(cfg, imgs, odo, gt, seed=0)
+    world = SyntheticWorld(cfg, n_landmarks=1200, room=10.0, seed=4)
+    lcfg, lgt, lodo, limgs = cs.loop_scene(world)
+    with cs.first_closure() as (joint_in, _):
+        cs.run_loop(lcfg, limgs, lodo, lgt, seed=0)
+    out = cs.f7_repeats(cfg, slam, joint_in.first, n)
+    print("REPEAT " + json.dumps(dict(tag=tag, n=n, **out)), flush=True)
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--ba", type=int, default=0)
     ap.add_argument("--merge", type=int, default=0)
     ap.add_argument("--mini-ba", type=int, default=0)
+    ap.add_argument("--ba-ms", type=int, default=0)
+    ap.add_argument("--repeat", type=int, default=0)
     ap.add_argument("--tag", default="")
     a = ap.parse_args()
     cs.phase_device()
@@ -158,6 +202,10 @@ def main():
         merge_spread(a.merge, a.tag)
     if a.mini_ba:
         mini_ba_spread(a.mini_ba, a.tag)
+    if a.ba_ms:
+        ba_ms(a.ba_ms, a.tag)
+    if a.repeat:
+        repeat(a.repeat, a.tag)
     return 0
 
 

@@ -23,6 +23,20 @@ against the JAX package. The one exception is ``forced()``: within it a
 CUDA tensor takes the fixed forms batched or not, which the localizer's
 tracked step uses so that a robot localized alone on the card is bitwise
 the same robot in a fleet.
+
+The solvers' scatter-adds of floats (local BA's and the joint GBA's
+observation and odometry terms, the pose graph's right-hand side, the
+mesh's point blocks and pose-graph edges) go through ``index_add`` and
+``index_add_``. The CUDA ``index_add_`` adds with atomics, in another order
+every run, so a solve on the card moved from run to run. On a CUDA tensor
+these helpers sum each index's values in their input order instead
+(``segment_sum``: the values gathered in a stable sort of the indices,
+then ``torch.segment_reduce``, which adds each segment's values one after
+the other), so a solve gives the same bits every run. The sort is made
+once for an index tensor and kept with it (``_segments``): the LM steps of
+a solve pass the same observation and edge indices, and sort them once.
+On the CPU the helpers are ``index_add_``, which adds in input order and
+keeps the bits that the parity tests hold against the JAX package.
 """
 from __future__ import annotations
 
@@ -30,8 +44,10 @@ import contextlib
 import threading
 
 import torch
+from torch.utils.weak import WeakIdKeyDictionary
 
-__all__ = ["forced", "active", "batched", "sum_halving", "sum_points", "matmul", "contract", "rows_matvec", "rows_vecmat"]
+__all__ = ["forced", "active", "batched", "sum_halving", "sum_points", "matmul", "contract",
+           "rows_matvec", "rows_vecmat", "segment_sum", "index_add", "index_add_"]
 
 
 _FORCED = threading.local()
@@ -119,3 +135,44 @@ def contract(eq: str, a, b, rows):
     if not _fixed(a, b):
         return torch.einsum(eq, a, b)
     return rows(a, b)
+
+
+# index tensor -> ((its version, n), stable-sort permutation, segment offsets)
+_SEGMENTS = WeakIdKeyDictionary()
+
+
+def _segments(idx, n: int):
+    """(perm, offsets): ``idx[perm]`` sorted stably, and the (n + 1,)
+    offsets of each value's segment in it. Kept with ``idx`` while it
+    lives and is not written to."""
+    hit = _SEGMENTS.get(idx)
+    if hit is not None and hit[0] == (idx._version, n):
+        return hit[1], hit[2]
+    srt, perm = torch.sort(idx.long(), stable=True)
+    offsets = torch.searchsorted(srt, torch.arange(n + 1, device=idx.device))
+    _SEGMENTS[idx] = ((idx._version, n), perm, offsets)
+    return perm, offsets
+
+
+def segment_sum(idx, vals, n: int):
+    """(n, ...) sums of ``vals`` (len(idx), ...) by their index in
+    [0, n), each index's values added in their input order."""
+    perm, offsets = _segments(idx, n)
+    return torch.segment_reduce(vals.index_select(0, perm), "sum", offsets=offsets, axis=0,
+                                unsafe=True)
+
+
+def index_add_(x, idx, vals):
+    """``x.index_add_(0, idx, vals)``; on the card in the order of
+    ``segment_sum``."""
+    if x.is_cuda:
+        return x.add_(segment_sum(idx, vals, x.shape[0]))
+    return x.index_add_(0, idx, vals)
+
+
+def index_add(x, idx, vals):
+    """``x.index_add(0, idx, vals)``; on the card in the order of
+    ``segment_sum``."""
+    if x.is_cuda:
+        return x + segment_sum(idx, vals, x.shape[0])
+    return x.index_add(0, idx, vals)

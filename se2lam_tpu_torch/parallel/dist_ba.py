@@ -32,7 +32,7 @@ from typing import NamedTuple
 import torch
 
 from .. import factors
-from ..ops import linalg, se2
+from ..ops import fixed_order, linalg, se2
 from ..ops.camera import CameraModel
 from ..solver import ba as ba_mod
 from ..solver.ba import BAConfig, BAProblem
@@ -295,11 +295,11 @@ def dist_solve_local_ba(dprob: DistBAProblem, cam: CameraModel, Tcb, cfg: BAConf
         S.index_put_((ei, ej), JiW @ Jj, accumulate=True)
         S.index_put_((ej, ei), JjW @ Ji, accumulate=True)
         S.index_put_((ej, ej), JjW @ Jj, accumulate=True)
-        b_red = b_red.index_add(0, ei, -torch.einsum("eab,eb->ea", JiW, r_e))
-        b_red = b_red.index_add(0, ej, -torch.einsum("eab,eb->ea", JjW, r_e))
+        b_red = fixed_order.index_add(b_red, ei, -torch.einsum("eab,eb->ea", JiW, r_e))
+        b_red = fixed_order.index_add(b_red, ej, -torch.einsum("eab,eb->ea", JjW, r_e))
         # Marquardt on the total pose diagonal (observations + edges)
-        dpp = dpp.index_add(0, ei, torch.diagonal(JiW @ Ji, dim1=-2, dim2=-1))
-        dpp = dpp.index_add(0, ej, torch.diagonal(JjW @ Jj, dim1=-2, dim2=-1))
+        dpp = fixed_order.index_add(dpp, ei, torch.diagonal(JiW @ Ji, dim1=-2, dim2=-1))
+        dpp = fixed_order.index_add(dpp, ej, torch.diagonal(JjW @ Jj, dim1=-2, dim2=-1))
         dpp = torch.maximum(dpp, 1e-3 * dpp.amax(dim=-1, keepdim=True) + 1e-6)
         S[diag, diag] += lam * dpp[..., None] * eye3[None]
         S_d = S.permute(0, 2, 1, 3).reshape(3 * K, 3 * K)
@@ -340,13 +340,14 @@ def _pcg_solve(dprob: DistBAProblem, cam, Tcb, cfg: BAConfig, mesh: Mesh, cg_ite
         if grid_p > 0:
             return contrib.reshape((Mb, grid_p) + tuple(contrib.shape[1:])).sum(1)
         out = torch.zeros((Mb,) + tuple(contrib.shape[1:]), dtype=dtype, device=contrib.device)
-        return out.index_add(0, blk.obs_mp, contrib)
+        return fixed_order.index_add(out, blk.obs_mp, contrib)
 
     def kf_reduce(contribs):
         """The blocks' (O, …) contributions → replicated (K, …): a local
         scatter each, then one psum."""
-        parts = [torch.zeros((K,) + tuple(c.shape[1:]), dtype=dtype, device=c.device)
-                 .index_add(0, blk.obs_kf, c) for c, blk in zip(contribs, blocks)]
+        parts = [fixed_order.index_add(
+            torch.zeros((K,) + tuple(c.shape[1:]), dtype=dtype, device=c.device), blk.obs_kf, c)
+            for c, blk in zip(contribs, blocks)]
         return mesh.psum(parts)[0]
 
     def solve_inner(poses, points_b, lam):
@@ -369,12 +370,12 @@ def _pcg_solve(dprob: DistBAProblem, cam, Tcb, cfg: BAConfig, mesh: Mesh, cg_ite
         D_obs = kf_reduce([s["JpW"] @ s["Jp"] for s in st])
 
         r_e, Ji, Jj, We, _chi_e, JiW, JjW = _edge_blocks(dp, poses)
-        bp = bp.index_add(0, ei, -torch.einsum("eab,eb->ea", JiW, r_e))
-        bp = bp.index_add(0, ej, -torch.einsum("eab,eb->ea", JjW, r_e))
+        bp = fixed_order.index_add(bp, ei, -torch.einsum("eab,eb->ea", JiW, r_e))
+        bp = fixed_order.index_add(bp, ej, -torch.einsum("eab,eb->ea", JjW, r_e))
         # the chain-aware block-tridiagonal preconditioner: diagonal from
         # every term and the damping, sub-diagonal from consecutive-pose
         # edges (loop edges only on the diagonal)
-        D = D_obs.index_add(0, ei, JiW @ Ji).index_add(0, ej, JjW @ Jj)
+        D = fixed_order.index_add(fixed_order.index_add(D_obs, ei, JiW @ Ji), ej, JjW @ Jj)
         damp = lam * torch.diagonal(D, dim1=-2, dim2=-1) + cfg.eps
         chain = dp.edge_valid & (ej == ei + 1)
         free_prev = torch.cat([torch.zeros(1, dtype=torch.bool, device=d0), free[:-1]])
@@ -413,8 +414,8 @@ def _pcg_solve(dprob: DistBAProblem, cam, Tcb, cfg: BAConfig, mesh: Mesh, cg_ite
             out = torch.einsum("kab,kb->ka", D_obs, v)
             te = (torch.einsum("eab,eb->ea", Ji, v[ei]) + torch.einsum("eab,eb->ea", Jj, v[ej]))
             Wte = torch.einsum("eab,eb->ea", We, te)
-            out = out.index_add(0, ei, torch.einsum("eba,eb->ea", Ji, Wte))
-            out = out.index_add(0, ej, torch.einsum("eba,eb->ea", Jj, Wte))
+            out = fixed_order.index_add(out, ei, torch.einsum("eba,eb->ea", Ji, Wte))
+            out = fixed_order.index_add(out, ej, torch.einsum("eba,eb->ea", Jj, Wte))
             out = out - Hpx_y(Hxxinv_apply(HpxT_v(mesh.replicate(v))))
             return (out + damp * v) * fm
 

@@ -20,7 +20,7 @@ import math
 import torch
 
 from .. import factors
-from ..ops import linalg, se2
+from ..ops import fixed_order, linalg, se2
 from ..solver.posegraph import PoseGraphProblem
 from .mesh import Mesh
 
@@ -80,7 +80,8 @@ def dist_solve_pose_graph(prob: PoseGraphProblem, mesh: Mesh, iters: int = 15,
         return mesh.psum(parts)[0]
 
     def scatter_k(idx, vals, shape):
-        return torch.zeros((K,) + shape, dtype=dtype, device=vals.device).index_add(0, idx, vals)
+        return fixed_order.index_add(torch.zeros((K,) + shape, dtype=dtype, device=vals.device),
+                                     idx, vals)
 
     p = prob.poses.to(d0)
     lam = torch.tensor(lm_init_lambda, dtype=dtype, device=d0)
@@ -96,13 +97,13 @@ def dist_solve_pose_graph(prob: PoseGraphProblem, mesh: Mesh, iters: int = 15,
             st.append((Ji, Jj, W))
             b_parts.append(scatter_k(e["ei"], -torch.einsum("eab,eb->ea", JiW, r), (3,))
                            + scatter_k(e["ej"], -torch.einsum("eab,eb->ea", JjW, r), (3,)))
-            D_parts.append(scatter_k(e["ei"], JiW @ Ji, (3, 3))
-                           .index_add(0, e["ej"], JjW @ Jj))
+            D_parts.append(fixed_order.index_add(scatter_k(e["ei"], JiW @ Ji, (3, 3)),
+                                                 e["ej"], JjW @ Jj))
             if precond == "tridiag":
                 chain = e["edge_valid"] & (e["ej"] == e["ei"] + 1)
                 Lrow = torch.where(chain, e["ej"], K)
                 L = torch.zeros((K + 1, 3, 3), dtype=dtype, device=pb.device)
-                L_parts.append(L.index_add(0, Lrow, JjW @ Ji)[:K])
+                L_parts.append(fixed_order.index_add(L, Lrow, JjW @ Ji)[:K])
         # the gradient and the preconditioner blocks: one psum each
         b = mesh.psum(b_parts)[0] * fm
         D = mesh.psum(D_parts)[0]
@@ -129,8 +130,9 @@ def dist_solve_pose_graph(prob: PoseGraphProblem, mesh: Mesh, iters: int = 15,
                 t = (torch.einsum("eab,eb->ea", Ji, vb[e["ei"]])
                      + torch.einsum("eab,eb->ea", Jj, vb[e["ej"]]))
                 Wt = torch.einsum("eab,eb->ea", W, t)
-                parts.append(scatter_k(e["ei"], torch.einsum("eba,eb->ea", Ji, Wt), (3,))
-                             .index_add(0, e["ej"], torch.einsum("eba,eb->ea", Jj, Wt)))
+                parts.append(fixed_order.index_add(
+                    scatter_k(e["ei"], torch.einsum("eba,eb->ea", Ji, Wt), (3,)),
+                    e["ej"], torch.einsum("eba,eb->ea", Jj, Wt)))
             return (mesh.psum(parts)[0] + damp * v) * fm
 
         x = torch.zeros((K, 3), dtype=dtype, device=d0)

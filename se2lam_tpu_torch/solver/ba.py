@@ -10,9 +10,9 @@ kernel K3 on the card) and the reduced 3K×3K camera system is solved
 densely. The LM loop runs ``iters`` steps as a Python loop that accepts
 with ``torch.where`` and reads nothing back to the host.
 
-On the card the observation blocks are scatter-added with atomics, so
-their f32 sums differ in order from run to run: hold a solve there by
-tolerance and by descent, not bitwise.
+The observation and odometry blocks are scatter-added in an order fixed
+by their indices (``ops/fixed_order.index_add``): a solve on the card
+gives the same bits every run.
 """
 from __future__ import annotations
 
@@ -22,7 +22,7 @@ import numpy as np
 import torch
 
 from .. import factors
-from ..ops import linalg, se2
+from ..ops import fixed_order, linalg, se2
 from ..ops.camera import CameraModel
 from .schur import schur_reduce
 
@@ -203,11 +203,11 @@ def accumulate_obs(K, M, obs_kf, obs_mp, Hpp_o, Hxx_o, Hpx_o, bp_o, bx_o):
     carry zero W blocks, so their in-range indices add exact zeros."""
     dtype, dev = Hpp_o.dtype, Hpp_o.device
     kf, mp = obs_kf.long(), obs_mp.long()
-    Hxx = torch.zeros((M, 3, 3), dtype=dtype, device=dev).index_add_(0, mp, Hxx_o)
-    bx = torch.zeros((M, 3), dtype=dtype, device=dev).index_add_(0, mp, bx_o)
+    Hxx = fixed_order.index_add_(torch.zeros((M, 3, 3), dtype=dtype, device=dev), obs_mp, Hxx_o)
+    bx = fixed_order.index_add_(torch.zeros((M, 3), dtype=dtype, device=dev), obs_mp, bx_o)
     Hpp = torch.zeros((K, K, 3, 3), dtype=dtype, device=dev)
     Hpp.index_put_((kf, kf), Hpp_o, accumulate=True)
-    bp = torch.zeros((K, 3), dtype=dtype, device=dev).index_add_(0, kf, bp_o)
+    bp = fixed_order.index_add_(torch.zeros((K, 3), dtype=dtype, device=dev), obs_kf, bp_o)
     Hpx = torch.zeros((K, 3, M, 3), dtype=dtype, device=dev)
     # [k, m] blocks through the (K, M, 3, 3) view of the [k,a],[m,b] layout
     Hpx.permute(0, 2, 1, 3).index_put_((kf, mp), Hpx_o, accumulate=True)
@@ -262,8 +262,8 @@ def _assemble(prob: BAProblem, cam: CameraModel, Tcb, cfg: BAConfig):
     Hpp.index_put_((ei, ej), JiW @ Jj, accumulate=True)
     Hpp.index_put_((ej, ei), JjW @ Ji, accumulate=True)
     Hpp.index_put_((ej, ej), JjW @ Jj, accumulate=True)
-    bp.index_add_(0, ei, -torch.einsum("eab,eb->ea", JiW, r_e))
-    bp.index_add_(0, ej, -torch.einsum("eab,eb->ea", JjW, r_e))
+    fixed_order.index_add_(bp, prob.edge_i, -torch.einsum("eab,eb->ea", JiW, r_e))
+    fixed_order.index_add_(bp, prob.edge_j, -torch.einsum("eab,eb->ea", JjW, r_e))
 
     chi2_total = (torch.where(prob.obs_valid, chi_o, torch.zeros_like(chi_o)).sum()
                   + torch.where(prob.edge_valid, chi_e, torch.zeros_like(chi_e)).sum())

@@ -19,7 +19,8 @@ import numpy as np
 import torch
 
 from .. import factors
-from ..ops import se2
+from ..device import resolve_device
+from ..ops import fixed_order, se2
 
 __all__ = [
     "PoseGraphProblem", "solve_pose_graph", "pose_graph_chi2", "synthetic_pose_graph",
@@ -40,11 +41,12 @@ class PoseGraphProblem(NamedTuple):
 def synthetic_pose_graph(rng, K: int, loop_pairs=None, n_random_loops: int = 0,
                          step_mu: float = 0.08, step_sigma: float = 0.02,
                          meas_noise: float = 0.002, pose_noise: float = 0.03,
-                         edge_info_scale: float = 100.0, device="cpu"):
+                         edge_info_scale: float = 100.0, device=None):
     """Chain + loop-closure fixture on the JAX package's numpy draws
     (``rng`` a ``np.random.Generator``): odometry edges chain 0..K-1,
     ``loop_pairs`` adds explicit (i, j) closures, ``n_random_loops``
-    samples long-range ones; KF0 is the gauge anchor, its noise zeroed."""
+    samples long-range ones; KF0 is the gauge anchor, its noise zeroed.
+    ``device=None`` means the card (``device.resolve_device``)."""
     gt = np.cumsum(rng.normal(step_mu, step_sigma, (K, 3)).astype(np.float32), 0)
     ei = list(range(K - 1))
     ej = list(range(1, K))
@@ -67,8 +69,10 @@ def synthetic_pose_graph(rng, K: int, loop_pairs=None, n_random_loops: int = 0,
     fixed = np.zeros(K, bool)
     fixed[0] = True
 
+    dev = resolve_device(device)
+
     def t(a):
-        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
 
     return PoseGraphProblem(
         poses=t(gt + noise),
@@ -112,8 +116,8 @@ def _assemble(p: PoseGraphProblem, huber_delta):
     H.index_put_((ej, ei), JjW @ Ji, accumulate=True)
     H.index_put_((ej, ej), JjW @ Jj, accumulate=True)
     b = torch.zeros((K, 3), dtype=dtype, device=dev)
-    b.index_add_(0, ei, -torch.einsum("eab,eb->ea", JiW, r))
-    b.index_add_(0, ej, -torch.einsum("eab,eb->ea", JjW, r))
+    fixed_order.index_add_(b, p.edge_i, -torch.einsum("eab,eb->ea", JiW, r))
+    fixed_order.index_add_(b, p.edge_j, -torch.einsum("eab,eb->ea", JjW, r))
     return H, b
 
 

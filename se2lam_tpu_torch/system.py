@@ -207,6 +207,11 @@ class SlamSystem:
         self._viz_every = 5
         self._last_img = None
         self._ref_img = None
+        # the split feed (receive_odo / receive_img): the newest reading of
+        # each, until both are there; and the session's end (request_finish)
+        self._pending_odo = None
+        self._pending_img = None
+        self._finished = False
 
     @classmethod
     def resume(cls, cfg: SystemConfig, map_path: str, enable_loops: bool = True, mesh=None,
@@ -280,6 +285,26 @@ class SlamSystem:
         self._viz_dir = out_dir
         self._viz_every = max(1, every_n_kf)
         self.log_ba = log_ba
+
+    # -- the split feed (OdoSLAM::receiveOdoData / receiveImgData) --
+
+    def receive_odo(self, x, y, theta):
+        """Hold an odometry reading (a later one replaces it); ``process``
+        runs once an image is there too."""
+        self._pending_odo = np.asarray([x, y, theta], np.float32)
+        self._maybe_step()
+
+    def receive_img(self, img):
+        """Hold an image (a later one replaces it); ``process`` runs once an
+        odometry reading is there too."""
+        self._pending_img = img
+        self._maybe_step()
+
+    def _maybe_step(self):
+        if self._pending_odo is not None and self._pending_img is not None:
+            img, odo = self._pending_img, self._pending_odo
+            self._pending_img = self._pending_odo = None
+            self.process(img, odo)
 
     # -- main synchronous step --
 
@@ -866,12 +891,14 @@ class SlamSystem:
     # -- outputs (OdoSLAM::saveMap trajectory dump, src/OdoSLAM.cpp:199-214) --
 
     def current_pose(self) -> np.ndarray:
+        self._drain_pipe()
         if self.trajectory:
             return self.trajectory[-1][1]
         return np.zeros(3, np.float32)
 
     def kf_trajectory(self) -> np.ndarray:
         """(nKF, 5) rows of [idKF, x, y, z, yaw] in the reference format."""
+        self._drain_pipe()
         self._finish_loop_pending()
         n = int(self.ms.n_kf)
         poses = self.ms.kf_pose[:n].cpu().numpy()
@@ -882,6 +909,33 @@ class SlamSystem:
     def save_kf_trajectory(self, path: str):
         save_trajectory(path, self.kf_trajectory())
 
+    # -- the OdoSLAM-named surface (include/se2lam/OdoSLAM.h:27-59) --
+
+    def receive_odo_data(self, x, y, theta, _timestamp=None):
+        """OdoSLAM::receiveOdoData (the timestamp is not used)."""
+        self.receive_odo(x, y, theta)
+
+    def receive_img_data(self, img, _timestamp=None):
+        """OdoSLAM::receiveImgData (the timestamp is not used)."""
+        self.receive_img(img)
+
+    def get_current_vehicle_pose(self) -> np.ndarray:
+        """OdoSLAM::getCurrentVehiclePose: the body pose (x, y, theta)."""
+        return self.current_pose()
+
+    def request_finish(self):
+        """OdoSLAM::requestFinish: resolves the frames in flight of a
+        pipelined feed, lands a pending loop stage and marks the session
+        done."""
+        self._drain_pipe()
+        self._finish_loop_pending()
+        self._finished = True
+
+    def wait_for_finish(self):
+        """OdoSLAM::waitForFinish: as ``request_finish`` (nothing runs
+        behind the caller's back, so there is nothing else to wait for)."""
+        self.request_finish()
+
     def save_map(self, path: str, with_vocab: bool = True):
         """The shutdown save (SAVE_NEW_MAP and the keyframe-trajectory dump,
         src/OdoSLAM.cpp:192-215): the map in the JAX package's format, with
@@ -890,6 +944,7 @@ class SlamSystem:
         keyframes; the loop closer adopts it), when ``with_vocab``; and
         ``se2lam_kf_trajectory.txt`` beside it. Returns the saved
         vocabulary, or None."""
+        self._drain_pipe()
         self._finish_loop_pending()
         ms, lc = self.ms, self._loop_closer
         vocab = lc.vocab if lc is not None else None
@@ -925,13 +980,16 @@ class SlamSystem:
 
     def save_frame_trajectory(self, path: str):
         """Per-frame CSV: frame_id, x, y, theta."""
+        self._drain_pipe()
         with open(path, "w") as f:
             for fid, p in self.trajectory:
                 f.write(f"{fid},{p[0]:.6f},{p[1]:.6f},{p[2]:.6f}\n")
 
     def n_keyframes(self) -> int:
+        self._drain_pipe()
         self._finish_loop_pending()
         return int(self.ms.n_kf)
 
     def n_map_points(self) -> int:
+        self._drain_pipe()
         return int(self.ms.mp_valid.sum())

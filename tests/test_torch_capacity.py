@@ -31,6 +31,7 @@ from se2lam_tpu_torch.convert import config_from_fields, map_state_from_numpy
 from se2lam_tpu_torch.mapstate import MapState
 from se2lam_tpu_torch.system import SlamSystem
 
+from jax_draws import run_jax_slam
 from test_capacity import _cfg
 from test_prune import check_consistency
 
@@ -63,18 +64,9 @@ def run(request):
         return orig(ms)
 
     js = jsys.SlamSystem(cfg, enable_loops=loops)
-    key, noise = jax.random.PRNGKey(0), []
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(jlm, "compact_map", record)
-        for img, odo in seq:
-            tracked = js.ts is not None
-            js.process(img, odo)
-            g = None
-            if tracked:
-                key, sub = jax.random.split(key)
-                g = torch.from_numpy(np.array(jax.random.gumbel(
-                    sub, (cfg.cap.ransac_trials, cfg.cap.n_features), jnp.float32)))
-            noise.append(g)
+        noise = run_jax_slam(js, seq)
 
     ts = SlamSystem(config_from_fields(dataclasses.asdict(cfg)), enable_loops=loops,
                     device="cpu")

@@ -763,3 +763,47 @@ def test_mini_ba_constraint_on_card_runs_the_kernel(card, small_map):
     torch.testing.assert_close(info.cpu(), want[1], rtol=0,
                                atol=5e-2 * float(want[1].abs().max()))
     assert torch.equal(info, info.T)
+
+
+@pytest.mark.cuda
+def test_solvers_repeat_bitwise_on_card(card, small_map):
+    """F7: local BA, the joint GBA (point axis as a flat list, not the
+    grid) and the dense pose graph give the same bits on every run on the
+    card, outside deterministic mode: their float scatter-adds go through
+    ``ops/fixed_order.index_add``."""
+    from se2lam_tpu_torch import localmap, loopclose
+    from se2lam_tpu_torch.mapstate import MapState
+    from se2lam_tpu_torch.solver.posegraph import solve_pose_graph, synthetic_pose_graph
+
+    assert not torch.are_deterministic_algorithms_enabled()
+    cfg, slam = small_map
+    ms = MapState(*(t.to(card) for t in slam.ms))
+    kf = int(ms.n_kf) - 1
+    c = tracking.constants(cfg, card)
+    prob = loopclose._joint_problem(ms, cfg)
+    flat = loopclose._joint_ba_cfg(ms, cfg, 3, grid=False)
+    pg = synthetic_pose_graph(np.random.default_rng(0), 64, loop_pairs=[(0, 50), (5, 60)],
+                              device=card)
+    solves = [lambda: localmap.run_local_ba(ms, kf, cfg)[0][:2],
+              lambda: ba.solve_local_ba(prob, c["cam"], c["Tcb"], flat)[:2],
+              lambda: solve_pose_graph(pg, iters=10)[:1]]
+    for solve in solves:
+        first, again = solve(), solve()
+        assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+@pytest.mark.cuda
+def test_segment_sum_on_card_matches_index_add(card):
+    """``fixed_order.segment_sum`` on the card: within f32 rounding of the
+    CPU's ``index_add_``, the same bits twice, the sort made once."""
+    from se2lam_tpu_torch.ops import fixed_order
+
+    g = torch.Generator().manual_seed(0)
+    idx = torch.randint(0, 300, (8192,), generator=g, dtype=torch.int32)
+    vals = torch.randn(8192, 3, 3, generator=g)
+    want = torch.zeros(300, 3, 3).index_add_(0, idx, vals)
+    idx_c, vals_c = idx.to(card), vals.to(card)
+    a = fixed_order.segment_sum(idx_c, vals_c, 300)
+    b = fixed_order.index_add(torch.zeros(300, 3, 3, device=card), idx_c, vals_c)
+    assert torch.equal(a, b) and len(fixed_order._SEGMENTS) >= 1
+    torch.testing.assert_close(a.cpu(), want, rtol=0, atol=1e-5)

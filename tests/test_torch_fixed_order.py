@@ -65,3 +65,24 @@ def test_helpers_are_the_plain_forms_on_the_cpu(batched):
         got, want = helpers(x, A, M, v), plain(x, A, M, v)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
+
+
+def test_index_add_helpers():
+    """On the CPU ``index_add(_)`` is ``index_add_``, bitwise; the card's
+    ``segment_sum`` adds each index's values in their input order, which
+    runs here too, and sorts an index tensor once."""
+    g = torch.Generator().manual_seed(0)
+    idx = torch.randint(0, 40, (500,), generator=g, dtype=torch.int32)
+    vals = torch.randn(500, 3, generator=g)
+    base = torch.randn(40, 3, generator=g)
+    want = base.clone().index_add_(0, idx, vals)
+    assert torch.equal(fo.index_add(base, idx, vals), want)
+    assert torch.equal(fo.index_add_(base.clone(), idx, vals), want)
+    seq = torch.zeros(40, 3)
+    for i, v in zip(idx.tolist(), vals):
+        seq[i] += v
+    assert torch.equal(fo.segment_sum(idx, vals, 40), seq)
+    perm = fo._segments(idx, 40)[0]
+    assert fo._segments(idx, 40)[0] is perm
+    idx[0] = 39 - idx[0]            # a write to the indices sorts them again
+    assert fo._segments(idx, 40)[0] is not perm

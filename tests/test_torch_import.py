@@ -46,6 +46,9 @@ import se2lam_tpu_torch.drivers.feed_live, se2lam_tpu_torch.drivers.fleet_demo
 import se2lam_tpu_torch.drivers.evaluate_ate
 for name in se2lam_tpu_torch._LAZY:
     getattr(se2lam_tpu_torch, name)
+for name in ("receive_odo", "receive_img", "_maybe_step", "receive_odo_data", "receive_img_data",
+             "get_current_vehicle_pose", "request_finish", "wait_for_finish"):
+    getattr(se2lam_tpu_torch.system.SlamSystem, name)     # the OdoSLAM surface
 new = set(sys.modules) - before
 bad = sorted(m for m in new
              if m.split(".")[0] in ("jax", "jaxlib")

@@ -36,6 +36,7 @@ from se2lam_tpu_torch.io import load_map as tload
 from se2lam_tpu_torch.localizer import Localizer as TLoc
 from se2lam_tpu_torch.system import SlamSystem as TSlam
 
+from jax_draws import jax_reloc_noise, run_jax_slam
 from synth_utils import TCB
 
 torch.set_num_threads(2)
@@ -69,14 +70,6 @@ def fixture(tmp_path_factory):
                 gt_map=gt_map, odo=odo, feats=feats, n_kf=slam.n_keyframes())
 
 
-def jax_reloc_noise(n_trials, n_slots, seed=7):
-    """The JAX Localizer's draws: split its key once per attempt."""
-    key = [jax.random.PRNGKey(seed)]
-
-    def nxt():
-        key[0], sub = jax.random.split(key[0])
-        return torch.from_numpy(np.array(jax.random.gumbel(sub, (n_trials, n_slots), jnp.float32)))
-    return nxt
 
 
 def _port_feats(f):
@@ -170,16 +163,11 @@ def test_resume_matches_jax(fixture):
     ts._reloc_localizer.reloc_gumbel = jax_reloc_noise(fx["cfg"].cap.ransac_trials,
                                                        fx["cfg"].cap.n_features)
     assert ts.kf_frame_ids == js.kf_frame_ids == [-1] * fx["n_kf"]
-    key = jax.random.PRNGKey(0)          # SlamSystem's own key, split per tracked frame
-    T, N = fx["cfg"].cap.ransac_trials, fx["cfg"].cap.n_features
-    for i in range(START, START + 8):
-        tracked = js.ts is not None
-        pj = js.process_features(fx["feats"][i], fx["odo"][i])
-        g = None
-        if tracked:
-            key, sub = jax.random.split(key)
-            g = torch.from_numpy(np.array(jax.random.gumbel(sub, (T, N), jnp.float32)))
-        pt = ts.process_features(_port_feats(fx["feats"][i]), fx["odo"][i], gumbel=g)
+    frames = [(fx["feats"][i], fx["odo"][i]) for i in range(START, START + 8)]
+    want = []
+    noise = run_jax_slam(js, frames, step=lambda f, o: want.append(js.process_features(f, o)))
+    for (f, o), g, pj in zip(frames, noise, want):
+        pt = ts.process_features(_port_feats(f), o, gumbel=g)
         np.testing.assert_allclose(pt, np.asarray(pj), rtol=0, atol=1e-3)
     # relocalized on the same frame, the seed keyframe at the same slot
     assert ts.kf_frame_ids == js.kf_frame_ids

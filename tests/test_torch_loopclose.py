@@ -42,6 +42,7 @@ from se2lam_tpu_torch.convert import (
 from se2lam_tpu_torch.mapstate import MapState
 from se2lam_tpu_torch.system import SlamSystem
 
+from jax_draws import run_jax_slam, stage_gumbel
 from test_dist_system import _world_cfg
 
 torch.set_num_threads(2)
@@ -61,13 +62,6 @@ def _port_ms(ms):
 
 def _tcfg(cfg):
     return config_from_fields(dataclasses.asdict(cfg))
-
-
-def _stage_gumbel(key, T, N):
-    """The loop stage's RANSAC noise: one Gumbel draw per candidate key."""
-    return torch.from_numpy(np.stack([
-        np.asarray(jax.random.gumbel(kk, (T, N), jnp.float32))
-        for kk in jax.random.split(key, tlc.N_FEAT_CANDS + 1)]))
 
 
 def _assert_tables_equal(tms: MapState, jms, fields=INT_FIELDS):
@@ -103,19 +97,10 @@ def lap():
         return out
 
     js = JaxSlam(cfg)
-    key, noise = jax.random.PRNGKey(0), []
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(jlc, "loop_stage", stage)
         mp.setattr(jlc.LoopCloser, "on_new_kf_fused", fused)
-        for img, o in zip(imgs, odo):
-            tracked = js.ts is not None
-            js.process(img, o)
-            g = None
-            if tracked:
-                key, sub = jax.random.split(key)
-                g = torch.from_numpy(np.array(jax.random.gumbel(
-                    sub, (cfg.cap.ransac_trials, cfg.cap.n_features), jnp.float32)))
-            noise.append(g)
+        noise = run_jax_slam(js, list(zip(imgs, odo)))
     ts = SlamSystem(_tcfg(cfg), device="cpu")
     for img, o, g in zip(imgs, odo, noise):
         ts.process(img, o, gumbel=g)
@@ -350,7 +335,7 @@ def test_global_bas_on_a_mesh_match_jax(lap):
 
 
 def _jax_stage_noise(r, cfg):
-    return _stage_gumbel(r["key"], cfg.cap.ransac_trials, cfg.cap.n_features)
+    return stage_gumbel(r["key"], cfg.cap.ransac_trials, cfg.cap.n_features)
 
 
 def test_loop_stage_matches_jax(lap):

@@ -3,6 +3,12 @@ against the JAX package's on the 40-frame lap of ``tests/test_system.py``
 (320x240, 256 features, 2 levels), every tracked frame drawing its RANSAC
 samples from the JAX package's per-frame Gumbel noise.
 
+The OdoSLAM-named surface (``receive_odo_data``/``receive_img_data``,
+``get_current_vehicle_pose``, ``request_finish``/``wait_for_finish``) is held
+as ``tests/test_system.py::test_reference_named_api`` holds JAX's: on the
+fixture's session, and on split feeds of the lap's first frames, bitwise
+``process`` on the same generator.
+
 The last tests run ``SlamSystem(cfg)`` with its defaults (loops on) on
 the revisit lap of ``tests/test_async_mapping.py``, and a 3-keyframe bank
 through capacity relief (the JAX parity of both is in
@@ -16,19 +22,19 @@ summation order, ``tests/test_torch_localmap.py``).
 """
 import dataclasses
 
-import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from se2lam_tpu.io import SyntheticWorld, ate_se2 as jax_ate
+from se2lam_tpu.io import SyntheticWorld, ate_se2 as jax_ate, load_map as jax_load_map
 from se2lam_tpu.system import SlamSystem as JaxSlam
 from se2lam_tpu_torch.convert import config_from_fields
+from se2lam_tpu_torch.io import load_map
 from se2lam_tpu_torch.io.trajectory import ate_se2, load_trajectory
 from se2lam_tpu_torch.parallel import Mesh, make_mesh
 from se2lam_tpu_torch.system import SlamSystem
 
+from jax_draws import run_jax_slam
 from test_torch_localmap import lap_cfg
 
 torch.set_num_threads(2)
@@ -41,17 +47,7 @@ def both():
     world = SyntheticWorld(cfg, n_landmarks=500, room=10.0, seed=4)
     seq = list(world.sequence(N_FRAMES, noise=(0.004, 0.002, 0.002)))
     js = JaxSlam(cfg, enable_loops=False)
-    key = jax.random.PRNGKey(0)     # SlamSystem's own key, split once per tracked frame
-    noise = []
-    for img, odo in seq:
-        tracked = js.ts is not None
-        js.process(img, odo)
-        if tracked:
-            key, sub = jax.random.split(key)
-            g = jax.random.gumbel(sub, (cfg.cap.ransac_trials, cfg.cap.n_features), jnp.float32)
-            noise.append(torch.from_numpy(np.array(g)))
-        else:
-            noise.append(None)
+    noise = run_jax_slam(js, seq)
     ts = SlamSystem(config_from_fields(dataclasses.asdict(cfg)), enable_loops=False,
                     device="cpu")
     ts.log_ba = True
@@ -102,6 +98,85 @@ def test_trajectory_files(both, tmp_path):
     lines = (tmp_path / "frames.csv").read_text().splitlines()
     assert len(lines) == N_FRAMES and lines[0].startswith("0,")
     assert ts.current_pose().shape == (3,)
+
+
+def test_reference_named_api_matches_jax(both, tmp_path):
+    """The pose of the OdoSLAM surface, then the session's end and its map
+    saved, read back by both packages."""
+    js, ts, _ = both
+    p = ts.get_current_vehicle_pose()
+    assert p.shape == (3,)
+    np.testing.assert_allclose(p, js.get_current_vehicle_pose(), rtol=0, atol=1e-2)
+    ts.request_finish()
+    ts.wait_for_finish()
+    assert ts._finished
+    out = tmp_path / "saved"
+    ts.save_map(str(out))
+    for load in (lambda d: load_map(d, device="cpu"), jax_load_map):
+        _, vocab, info = load(str(out))
+        assert info["n_kf"] == ts.n_keyframes() and vocab is not None
+    assert load_trajectory(str(out / "se2lam_kf_trajectory.txt")).shape[0] >= 1
+
+
+def _lap_frames(n):
+    cfg = config_from_fields(dataclasses.asdict(lap_cfg()))
+    world = SyntheticWorld(cfg, n_landmarks=500, room=10.0, seed=4)
+    return cfg, list(world.sequence(n, noise=(0.004, 0.002, 0.002)))
+
+
+def _system(cfg):
+    return SlamSystem(cfg, enable_loops=False, device="cpu",
+                      generator=torch.Generator().manual_seed(3))
+
+
+def test_split_feed_is_process():
+    """``receive_odo``/``receive_img`` (and their ``_data`` aliases, whose
+    timestamps are ignored), the odometry first on even frames and the
+    image first on odd ones, a later reading replacing a pending one: one
+    frame a completed pair, the poses, keyframes and local BAs bitwise
+    ``process``'s on the same generator."""
+    cfg, seq = _lap_frames(12)
+    ref = _system(cfg)
+    want = [ref.process(img, odo) for img, odo in seq]
+    s = _system(cfg)
+    got = []
+    for i, (img, odo) in enumerate(seq):
+        if i % 2 == 0:
+            s.receive_odo_data(*(odo + 1.0), i / 30.0)
+            s.receive_odo_data(*odo, i / 30.0)
+            assert s.frame_id == i
+            s.receive_img_data(img, i / 30.0)
+        else:
+            s.receive_img(np.zeros_like(img))
+            s.receive_img(img)
+            assert s.frame_id == i
+            s.receive_odo(*odo)
+        assert s.frame_id == i + 1
+        got.append(s.get_current_vehicle_pose())
+    np.testing.assert_array_equal(np.asarray(got), np.asarray(want))
+    assert s.kf_frame_ids == ref.kf_frame_ids and len(s.kf_frame_ids) >= 2
+    assert s.n_local_ba == ref.n_local_ba
+    assert s._pending_odo is None and s._pending_img is None
+
+
+def test_request_finish_drains_the_pipelined_feed():
+    """``request_finish`` on a ``process_async`` session resolves the frames
+    in flight: the trajectory holds every frame, bitwise the one
+    ``flush_async`` gives."""
+    cfg, seq = _lap_frames(12)
+    a, b = _system(cfg), _system(cfg)
+    for s in (a, b):
+        s.pipeline_depth = 3
+        for img, odo in seq:
+            s.process_async(img, odo)
+    b.flush_async()
+    assert a._pipe
+    a.request_finish()
+    assert a._finished and not a._pipe
+    assert [f for f, _ in a.trajectory] == list(range(len(seq)))
+    np.testing.assert_array_equal(np.asarray([p for _, p in a.trajectory]),
+                                  np.asarray([p for _, p in b.trajectory]))
+    assert a.kf_frame_ids == b.kf_frame_ids
 
 
 def test_default_system_closes_the_revisit_lap():
