@@ -48,7 +48,7 @@ a nonzero exit if it fails:
    (8192, 1000), (8191, 997), (200, 300), with every gated distance tied
    at N2 = 1, 31, 32, 33, 997, on all-gated rows and on the real inputs of
    the first tracked localization frame, and its times;
-   ``Localizer(cfg, ms, vocab)`` cold on frames 10-49 for 3 RANSAC
+   ``Localizer(cfg, ms, vocab)`` cold on frames 10-49 for 2 RANSAC
    draws, every projection match a kernel launch, localized count and
    error against the JAX package's spread; ``SlamSystem.resume`` on the
    saved map over frames 30-59: relocalized frame, keyframes inserted,
@@ -62,7 +62,7 @@ a nonzero exit if it fails:
    points), the keyframe cadence (2-8 frames) and untouched loop gates of
    the JAX package's reference-gates test, on that test's scene (a 72-frame
    lap plus 24 revisit frames of ``SyntheticWorld(n_landmarks=1200,
-   room=10.0, seed=4)``), for 2 RANSAC draws: each closes a loop, its
+   room=10.0, seed=4)``), for 1 RANSAC draw: it closes a loop, its
    corrected trajectory beats raw odometry, its keyframe count and ATE lie
    inside the JAX package's spread; every launch of the three kernels is
    counted, the Schur kernel's at the local-BA and the joint-GBA shapes
@@ -101,7 +101,7 @@ a nonzero exit if it fails:
    step at B = 1, its poses (odometry's) within 1e-5, ⌈5B/8⌉ FAST+NMS
    launches a step, ms per robot-frame and peak memory;
 16. fleet localization: B = 4 robots (starts 10, 12, 14, 16, odometry
-   noise seeds 20-23) x 4 chunks of 8 frames on the saved map, one
+   noise seeds 20-23) x 2 chunks of 8 frames on the saved map, one
    ``make_fleet_localizer`` step a chunk: every robot's poses and tracked
    flags bitwise those of the same robot in a fleet of one; the fleet of
    one against ``Localizer.process_chunk`` chunk by chunk, both started
@@ -135,7 +135,7 @@ a nonzero exit if it fails:
 20. map merging at the bench widths: two robots' maps (``SlamSystem(cfg,
    enable_loops=False)``, the loop phase's keyframe cadence) on
    overlapping segments of ``examples/fleet_demo.py``'s circuit, merged
-   with ``merge_maps`` for 3 draws (generators 42, 43, 44): the Schur
+   with ``merge_maps`` for 2 draws (generators 42, 43): the Schur
    kernel's launches at (256, 8192) in the joint GBA and its check on
    that real system, the merged map's tables consistent, its keyframes
    both maps', at least one point fused, B's keyframes within 0.5 m of
@@ -193,7 +193,24 @@ a nonzero exit if it fails:
    and within 0.02 m of the CPU's, a K1 launch a frame; the 160x120 vision
    blackout of ``tests/test_vision_loss.py`` (frames 12-17 blank, or
    noise): finite poses, a keyframe after it, live and corrected ATE under
-   0.3.
+   0.3; F7 on the mesh: the dry run's distributed local BA and an
+   edge-sharded pose graph (K = 128, a 16-step inner PCG), 5 runs each,
+   bitwise;
+25. slice 10, the long horizon: the soak of the JAX package's
+   ``examples/soak_bank_scale.py`` at its full protocol through the port's
+   driver (``drivers/soak_bank_scale.run``: 14 laps of 90 frames on two
+   radii, a keyframe every 2-4 frames into 128 slots, loops on), every
+   assert of the JAX script (>= 200 insertions, >= 10 closures, <= 2 loop-
+   stage pulls a keyframe, feature-edge slots left, corrected ATE <=
+   max(odometry's, 0.5), consistent tables), its report beside the JAX
+   one, every kernel's launches, the device's allocated and peak memory and
+   the host's RSS after each lap (no growth that goes on lap after lap),
+   K3 on the last joint GBA's real system at (128, 8192) and the last local
+   BA's at (16, 512) against f64 (``real_schur_check``, timed in a graph
+   and eagerly); the drift study's ``slam_joint`` on its odometry draw 3
+   (3 laps, 270 frames), its corrected ATE below odometry's, beside the
+   JAX row; ``study_tri_accuracy``'s default run against the JAX script's
+   lines.
 In the child of phases 13-14 also the runtime: ``parallel.runtime`` over
 NCCL at world size 1 holding the 4 blocks, whose psum and distributed pose
 graph equal the in-process mesh's bitwise (deterministic mode). Phases 15
@@ -232,10 +249,11 @@ from se2lam_tpu_torch import localmap, loopclose, mapmerge, tracking
 from se2lam_tpu_torch import vocab as vocab_mod
 from se2lam_tpu_torch.config import SystemConfig
 from se2lam_tpu_torch.drivers import run_dataset as run_dataset_driver
+from se2lam_tpu_torch.drivers import soak_bank_scale, study_drift, study_tri_accuracy
 from se2lam_tpu_torch.entry import default_cfg, dryrun_multichip, entry, session_cfg
 from se2lam_tpu_torch.frontend import fast_nms as K1
 from se2lam_tpu_torch.frontend import windowed_match as K2
-from se2lam_tpu_torch.frontend.orb import OrbExtractor, OrbFeatures
+from se2lam_tpu_torch.frontend.orb import OrbConfig, OrbExtractor, OrbFeatures
 from se2lam_tpu_torch.io import (
     DatasetRoom, LiveClient, SlamServer, load_map, native_loader, save_map, write_dataset_room,
 )
@@ -296,7 +314,7 @@ MAP_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke" / "map"
 LOC_FRAMES = range(10, 50)
 RESUME_FRAMES = range(30, 60)
 LOC_NOISE = (0.002, 0.001, 0.001)   # fresh odometry noise, seed 9
-LOC_DRAWS = 3
+LOC_DRAWS = 2      # 3 before the long-horizon phase came
 # The JAX package's spread on these frames (examples/loc_draws.py, CPU, 6
 # draws, reloc_min_inliers=45): the Localizer relocalizes at frame 10 and
 # localizes all 40 frames, median error 0.05264 m, in every draw; resume
@@ -310,10 +328,10 @@ F1_LEVELS = (9, 10)     # past the kernel's 8-entry level table: two launches a 
 # tests/test_loop_reference_gates.py, its keyframe cadence, the bench widths
 LOOP_CADENCE = dict(min_frames_between_kf=2, max_frames_between_kf=8)
 LOOP_NOISE = (0.004, 0.002, 0.002)   # odometry noise per step, seed 3
-# 2 draws (3 before the mesh phases came): the mesh session of phase 22 runs
-# the scene a third time, held to the same spread, and the script keeps near
-# half of its time limit
-LOOP_DRAWS = 2
+# 1 draw (3 before the mesh phases came, 2 before the long-horizon phase):
+# the mesh session of phase 22 runs the scene again, held to the same
+# spread, and the script keeps 20% of its time limit
+LOOP_DRAWS = 1
 # The JAX package's spread on these frames (examples/loop_draws.py, CPU, 4
 # draws): 28-29 keyframes, 2 loops closed in every draw, live ATE
 # 0.02551-0.03153 m, corrected ATE 0.01315-0.02227 m, raw odometry's
@@ -347,7 +365,8 @@ FEED_K, FEED_DEPTH = 8, 2
 FEED_LOC_POSE_TOL = 1e-3
 FLEET_SIZES, FLEET_FRAMES = (1, 2, 4, 8), 16
 FLEET_POSE_TOL = 1e-5          # the JAX package's tests/test_fleet.py
-FLEET_LOC_STARTS, FLEET_LOC_K, FLEET_LOC_CHUNKS = (10, 12, 14, 16), 8, 4
+# 2 chunks a robot (4 before the long-horizon phase came)
+FLEET_LOC_STARTS, FLEET_LOC_K, FLEET_LOC_CHUNKS = (10, 12, 14, 16), 8, 2
 # the mesh phases: 4 blocks on the one card (make_mesh(4, device="cuda")),
 # as the JAX package's mesh runs on forced host devices
 MESH_BLOCKS = 4
@@ -364,7 +383,7 @@ CAMERA_FPS = 30.0              # the paced client's rate, a camera's
 # package merges it: robot A keeps ~5 keyframes 36 degrees apart)
 MERGE_CIRCLE, MERGE_A, MERGE_B = 80, range(0, 48), range(24, 80)
 MERGE_NOISE_SEED = 0
-MERGE_DRAWS = (42, 43, 44)
+MERGE_DRAWS = (42, 43)        # (42, 43, 44) before the long-horizon phase came
 MERGE_MANY_SEGMENTS = (range(0, 40), range(24, 64), range(48, 80))
 MERGE_B_ERR_MAX = 0.5          # tests/test_mapmerge.py:82
 # The JAX package's spread on this scene (examples/merge_draws.py, CPU:
@@ -420,6 +439,34 @@ BLACKOUT_TCB = np.array([[0, 0, 1, 0], [-1, 0, 0, 0], [0, -1, 0, 0.5], [0, 0, 0,
 # HBM3 at 700 W); ``index_put_(accumulate=True)`` in place of the
 # segment sum read 112.4 against 88.1 and was not adopted
 F7_IN_TURNS = dict(parent_ms=98.22, repaired_ms=89.69, runs=12)
+# F7 on the mesh (4 blocks of the card): the dry run's local BA (K=64,
+# M=2048, P=8, 3 LM steps) and an edge-sharded pose graph at a small K
+# with a short inner PCG
+F7_MESH_BA = (64, 2048, 8, 3)
+F7_MESH_PG_K = 128
+F7_MESH_PG_LOOPS = ((0, F7_MESH_PG_K - 20), (10, F7_MESH_PG_K - 5), (30, F7_MESH_PG_K - 1))
+F7_MESH_PG_ITERS = 10
+F7_MESH_PG_CG = 16
+# slice 10 (phase 25): the bank-scale soak of examples/soak_bank_scale.py
+# at its full protocol, the drift study's slam_joint on draw 3 and the
+# triangulation probe, held to the JAX package's recorded results
+SOAK_DIR = MAP_DIR.parent / "soak"
+SOAK_JAX = dict(kf_insertions=251, final_kfs=117, loops_closed=47, renewal_gbas=16,
+                vocab_trainings=7, kf_compactions=8, ate_corrected=0.1367,
+                ate_odo=0.1074)     # artifacts/soak_r5/soak.json
+SOAK_MEM_SLACK = 1.05           # the second half's peak over the first half's, at most
+SOAK_MEM_SLACK_BYTES = 16 << 20
+SOAK_RSS_SLACK_BYTES = 64 << 20
+SOAK_LOCAL_BA = (16, 512)       # (local_kfs + local_ref_kfs, local_mps) of build_cfg
+SOAK_JOINT = (128, 8192)        # (max_kfs, max_mps) of build_cfg
+DRIFT_DRAW = 3
+# artifacts/drift_study_r5/results.json, draw 3: odometry and slam_joint
+DRIFT_JAX = dict(ate_odo=0.1208, ate_corrected=0.0819, ate_live=0.1979, n_loops=5, n_kfs=42)
+# examples/study_tri_accuracy.py on the JAX package (CPU): per gap the
+# points, their median and p90 error (m)
+TRI_JAX = {2: (601, 0.440, 0.917), 4: (83, 2.758, 3.167), 8: (121, 2.695, 3.090)}
+TRI_N_RTOL = 0.05               # the card's descriptors may flip a rare bit (phase 4)
+TRI_MED_TOL = 0.05
 
 
 def log(msg):
@@ -2938,13 +2985,38 @@ def f7_repeats(cfg, slam, joint_first, n=F7_REPEATS):
     return {name: repeat_diff(fn, n) for name, fn in solves.items()}
 
 
-def phase_f7(cfg, slam, joint_first, run):
-    """F7 on the card: ``f7_repeats``, every solve bitwise its first run,
-    outside deterministic mode; beside it this run's local-BA ms a
-    keyframe and the in-turn measurement's."""
+def f7_mesh_repeats(mesh, n=F7_REPEATS):
+    """F7 on the mesh: the dry run's distributed local BA (F7_MESH_BA) and
+    an edge-sharded pose graph at F7_MESH_PG_K with a short inner PCG, each
+    run ``n`` times on the same inputs outside deterministic mode
+    (``repeat_diff``)."""
+    from se2lam_tpu_torch.ops.camera import CameraModel
+    from se2lam_tpu_torch.parallel import dist_solve_pose_graph, sharded_solve_local_ba
+    from se2lam_tpu_torch.solver.ba import BAConfig, synthetic_grid_ba
+    from se2lam_tpu_torch.solver.posegraph import synthetic_pose_graph
+
+    K, M, P, iters = F7_MESH_BA
+    rng = np.random.default_rng(0)
+    cam = CameraModel.create(500.0, 500.0, 320.0, 240.0, device="cuda")
+    Tcb = torch.tensor([[0, -1, 0, 0], [0, 0, -1, 0], [1, 0, 0, 0], [0, 0, 0, 1]],
+                       dtype=torch.float32, device="cuda")
+    prob, _ = synthetic_grid_ba(rng, K, M, P, cam, Tcb)
+    pg = synthetic_pose_graph(rng, F7_MESH_PG_K, loop_pairs=F7_MESH_PG_LOOPS, device="cuda")
+    solves = dict(
+        mesh_local_ba=lambda: sharded_solve_local_ba(prob, cam, Tcb, BAConfig(iters=iters),
+                                                     mesh)[:2],
+        mesh_pose_graph=lambda: dist_solve_pose_graph(pg, mesh, iters=F7_MESH_PG_ITERS,
+                                                      cg_iters=F7_MESH_PG_CG)[:1])
+    return {name: repeat_diff(fn, n) for name, fn in solves.items()}
+
+
+def phase_f7(cfg, slam, joint_first, run, mesh):
+    """F7 on the card: ``f7_repeats`` and ``f7_mesh_repeats``, every solve
+    bitwise its first run, outside deterministic mode; beside it this
+    run's local-BA ms a keyframe and the in-turn measurement's."""
     if torch.are_deterministic_algorithms_enabled():
         raise SystemExit("chip_smoke: F7 must be checked outside deterministic mode")
-    out = f7_repeats(cfg, slam, joint_first)
+    out = dict(f7_repeats(cfg, slam, joint_first), **f7_mesh_repeats(mesh))
     log("F7 local BA ms a keyframe: " + json.dumps(dict(
         this_run=run["local_ba_ms_per_kf"], in_turns=F7_IN_TURNS)))
     log(f"F7 ({F7_REPEATS} runs each, outside deterministic mode): " + json.dumps(out))
@@ -3056,11 +3128,195 @@ def phase_blackout():
     return out
 
 
-def phase_slice9(cfg, world, slam, run, launches, joint_first):
-    """Slice 9: the split feed, F7, distortion, the blackout."""
+def phase_slice9(cfg, world, slam, run, launches, joint_first, mesh):
+    """Slice 9: the split feed, F7 (on the mesh too), distortion, the
+    blackout."""
     return dict(odoslam=phase_odoslam(cfg, world, slam, launches),
-                f7=phase_f7(cfg, slam, joint_first, run), distortion=phase_distortion(),
+                f7=phase_f7(cfg, slam, joint_first, run, mesh), distortion=phase_distortion(),
                 blackout=phase_blackout())
+
+
+def latest_schur_spy(shapes):
+    """A stand-in for ``ba.schur_reduce`` that records every call's (K, M)
+    and keeps the (Hpx, Hxx⁻¹) of the latest call at each of ``shapes``;
+    install with ``spied_schur``."""
+    spy = dict(shapes=[], latest={})
+    orig = ba.schur_reduce
+
+    def reduce_spy(Hpp, bp, Hpx, Hxx_inv, bx):
+        shape = (Hpx.shape[0], Hpx.shape[2])
+        spy["shapes"].append(shape)
+        if shape in shapes:
+            spy["latest"][shape] = (Hpx, Hxx_inv)
+        return orig(Hpp, bp, Hpx, Hxx_inv, bx)
+
+    spy["fn"], spy["orig"] = reduce_spy, orig
+    return spy
+
+
+def host_rss_bytes():
+    """This process's resident set (``VmRSS``)."""
+    with open("/proc/self/status") as f:
+        for ln in f:
+            if ln.startswith("VmRSS:"):
+                return int(ln.split()[1]) * 1024
+    return -1
+
+
+def steady(xs, rel, slack):
+    """No growth that goes on lap after lap: the second half's largest
+    reading at most ``rel`` times the first half's plus ``slack``."""
+    h = len(xs) // 2
+    return max(xs[h:]) <= rel * max(xs[:h]) + slack
+
+
+def phase_soak():
+    """The soak of ``examples/soak_bank_scale.py`` at its full protocol
+    through the port's driver (``soak_bank_scale.run``, whose asserts are
+    the JAX script's), every kernel's launches counted, the device's
+    allocated and peak memory and the host's RSS after each lap, the loop
+    stage's and the joint GBA's ms; K3 on the last joint GBA's and the
+    last local BA's real damped systems (``real_schur_check``, timed)."""
+    spy = latest_schur_spy({SOAK_LOCAL_BA, SOAK_JOINT})
+    laps = []
+
+    def on_lap(lap, slam):
+        torch.cuda.synchronize()
+        laps.append(dict(lap=lap, allocated=torch.cuda.memory_allocated(),
+                         peak=torch.cuda.max_memory_allocated(), rss=host_rss_bytes(),
+                         kfs=int(slam.ms.n_kf), loops=slam._loop_closer.n_loops_closed))
+        log("soak lap: " + json.dumps(laps[-1]))
+
+    args = soak_bank_scale.parse_args(["--out", str(SOAK_DIR)])
+    torch.cuda.reset_peak_memory_stats()
+    K1.fast_nms.launches = K2.windowed_top2.launches = K3.point_reduction.launches = 0
+    with spied_schur(spy), StageTimer(loopclose, "loop_stage") as st, \
+            StageTimer(loopclose, "run_global_ba_joint") as jg, \
+            StageTimer(vocab_mod, "train_vocab") as tv, \
+            Counted(K2, "projection_match_inputs") as k2_in:
+        t0 = time.perf_counter()
+        try:
+            report = soak_bank_scale.run(args, on_lap=on_lap)
+        except AssertionError as e:
+            raise SystemExit(f"chip_smoke: the soak failed an assert of its JAX script: {e}")
+        wall = time.perf_counter() - t0
+        stage_ms, joint_ms, vocab_ms = st.ms(), jg.ms(), tv.ms()
+    k1, k2, k3 = K1.fast_nms.launches, K2.windowed_top2.launches, K3.point_reduction.launches
+    cfg = soak_bank_scale.soak_cfg(args.noise)
+    shapes = sorted(set(spy["shapes"]))
+    out = dict(report, wall_s=wall, frames_per_s=report["frames"] / wall,
+               k1_launches=k1, k2_launches=k2, k3_launches=k3, k3_shapes=shapes,
+               k3_joint_launches=spy["shapes"].count(SOAK_JOINT), joint_gbas=len(joint_ms),
+               loop_stage_ms_per_kf=median(stage_ms), loop_stage_ms_max=max(stage_ms, default=None),
+               loop_stages=len(stage_ms), joint_gba_ms=median(joint_ms),
+               vocab_train_ms=median(vocab_ms),
+               allocated=[x["allocated"] for x in laps], peak=[x["peak"] for x in laps],
+               rss=[x["rss"] for x in laps], jax=SOAK_JAX)
+    log("soak: " + json.dumps(out))
+    if not (k1 == report["frames"] and k2 >= report["kf_insertions"]
+            and k3 == len(spy["shapes"]) and set(shapes) == {SOAK_LOCAL_BA, SOAK_JOINT}
+            and out["k3_joint_launches"] == cfg.gm_joint_ba_iters * len(joint_ms)):
+        raise SystemExit(f"chip_smoke: soak launches K1 {k1} for {report['frames']} frames, "
+                         f"K2 {k2} for {report['kf_insertions']} insertions, K3 {k3} at {shapes}")
+    if not (steady(out["allocated"], SOAK_MEM_SLACK, SOAK_MEM_SLACK_BYTES)
+            and steady(out["peak"], SOAK_MEM_SLACK, SOAK_MEM_SLACK_BYTES)
+            and steady(out["rss"], SOAK_MEM_SLACK, SOAK_RSS_SLACK_BYTES)):
+        raise SystemExit("chip_smoke: the soak's memory grows lap after lap")
+    checks = {}
+    for shape, what in ((SOAK_JOINT, "the soak's last joint GBA"),
+                        (SOAK_LOCAL_BA, "the soak's last local BA")):
+        Hpx, Hxx_inv = spy["latest"][shape]
+        checks[shape] = real_schur_check(Hpx, Hxx_inv, what)
+    world, gt, _ = soak_bank_scale.soak_scene(cfg, 1, args.frames_per_lap, args.noise)
+    return dict(run=out, joint=checks[SOAK_JOINT], local=checks[SOAK_LOCAL_BA],
+                k1=soak_k1(cfg, world.render(gt[0])), k2=soak_k2(tuple(k2_in.last)))
+
+
+def soak_k1(cfg, img):
+    """K1 on a soak frame's levels (320x240 and 266x200 in one launch):
+    bitwise its plain version, its times and bound."""
+    oc = OrbConfig(height=cfg.height, width=cfg.width, n_features=cfg.cap.n_features,
+                   scale_factor=cfg.scale_factor, n_levels=cfg.max_level)
+    levels = [lv.contiguous() for lv in OrbExtractor(oc).pyramid(torch.from_numpy(img).cuda())]
+    err = k1_check(K1.fast_nms_levels(levels, T_HIGH, T_LOW), levels, "a soak frame")
+    px = sum(lv.numel() for lv in levels)
+    bytes_s, ops_s = FAST_BYTES_PER_PX * px / HBM_BYTES_PER_S, FAST_OPS_PER_PX * px / F32_OPS_PER_S
+    out = dict(shapes=[tuple(lv.shape) for lv in levels], px=px, max_abs_err=err,
+               ms=graph_ms(lambda: K1.fast_nms_levels(levels, T_HIGH, T_LOW)),
+               eager_ms=events_ms(lambda: K1.fast_nms_levels(levels, T_HIGH, T_LOW), reps=200),
+               plain_ms=graph_ms(lambda: K1.fast_nms_levels_plain(levels, T_HIGH, T_LOW)),
+               plain_eager_ms=events_ms(lambda: K1.fast_nms_levels_plain(levels, T_HIGH, T_LOW)),
+               bound_ms=1e3 * max(bytes_s, ops_s),
+               bound_by="bytes" if bytes_s >= ops_s else "operations")
+    log("kernel: K1 on a soak frame: " + json.dumps(out))
+    return out
+
+
+def soak_k2(args):
+    """K2 on the real inputs of the soak's last keyframe insertion (the
+    bank's 8192 points against the frame's feature slots): exact against
+    its plain version, its times and bound."""
+    err = k2_check(args, "the soak's last insertion")
+    bound, by, all_pairs, gated = k2_bound(args)
+    out = dict(shape=(args[0].shape[0], args[6].shape[0]), gated_pairs=gated,
+               max_abs_err=err, ms=graph_ms(lambda: K2.windowed_top2(*args)),
+               eager_ms=events_ms(lambda: K2.windowed_top2(*args)),
+               plain_ms=graph_ms(lambda: K2.windowed_top2_plain(*args)),
+               plain_eager_ms=events_ms(lambda: K2.windowed_top2_plain(*args)),
+               bound_ms=bound, bound_by=by, bound_all_pairs_ms=all_pairs)
+    log("kernel: K2 on the soak's last insertion: " + json.dumps(out))
+    return out
+
+
+def phase_drift_draw():
+    """The drift study's ``slam_joint`` on its draw 3 (3 laps, 270
+    frames) through the port's driver (``study_drift.run_slam``): its
+    corrected trajectory beats raw odometry, as the JAX package's does,
+    and its ATE, closures and keyframes print beside the JAX row."""
+    cfg = study_drift.build_cfg()
+    world = SyntheticWorld(cfg, n_landmarks=600, room=10.0, seed=4)
+    gt = study_drift.lap_sequence(world, 3.0, 90)
+    odo = world.odometry(gt, noise=(0.012, 0.006, 0.006), seed=DRIFT_DRAW)
+    K1.fast_nms.launches = K2.windowed_top2.launches = K3.point_reduction.launches = 0
+    t0 = time.perf_counter()
+    r, corr = study_drift.run_slam(study_drift.build_cfg(joint_iters=cfg.gm_joint_ba_iters),
+                                   world, gt, odo, True, 90)
+    torch.cuda.synchronize()
+    out = dict(r, ate_odo=ate_se2(odo[:, :2], gt[:, :2])[0], seconds=time.perf_counter() - t0,
+               k1_launches=K1.fast_nms.launches, k2_launches=K2.windowed_top2.launches,
+               k3_launches=K3.point_reduction.launches, jax=DRIFT_JAX)
+    log(f"drift slam_joint, draw {DRIFT_DRAW}: " + json.dumps(out))
+    if not (np.isfinite(corr).all() and out["ate_corrected"] < out["ate_odo"]
+            and out["n_loops"] >= 1 and out["k1_launches"] == len(gt)
+            and out["k2_launches"] >= 1 and out["k3_launches"] >= 1):
+        raise SystemExit("chip_smoke: the drift study's slam_joint does not beat odometry "
+                         "(or launched no kernel)")
+    return out
+
+
+def phase_tri():
+    """``study_tri_accuracy``'s default run on the card, held to the JAX
+    script's lines (TRI_JAX)."""
+    K1.fast_nms.launches = 0
+    out = study_tri_accuracy.run()
+    k1 = K1.fast_nms.launches
+    log("tri accuracy: " + json.dumps(dict(out, k1_launches=k1, jax=TRI_JAX)))
+    want_k1 = 2 * len(study_tri_accuracy.GAPS) * len(study_tri_accuracy.STARTS)
+    for gap, (n, med, _) in TRI_JAX.items():
+        r = out[gap]
+        if abs(r["n"] - n) > TRI_N_RTOL * n or abs(r["err_med"] - med) > TRI_MED_TOL:
+            raise SystemExit(f"chip_smoke: triangulation at gap {gap}: {r}, JAX {n} points "
+                             f"at median {med}")
+    if k1 != want_k1:
+        raise SystemExit(f"chip_smoke: triangulation probe launched K1 {k1} times, want {want_k1}")
+    return dict(gaps=out, k1_launches=k1)
+
+
+def phase_long_horizon():
+    """Phase 25 (slice 10): the soak, the drift draw, the triangulation
+    probe, each timed."""
+    return dict(soak=timed("soak", phase_soak), drift=timed("drift draw", phase_drift_draw),
+                tri=timed("tri accuracy", phase_tri))
 
 
 def timed(name, fn, *args):
@@ -3106,12 +3362,18 @@ def main():
     mesh_run = timed("mesh session", phase_mesh_session, loop_world, mesh, lp["run"])
     slice8 = timed("slice 8", phase_slice8, cfg, oc, extract, world, gt, lp["closing"], ms)
     slice9 = timed("slice 9", phase_slice9, cfg, world, slam, run, (k1_map, k2_map, k3_map),
-                   lp["joint_first"])
+                   lp["joint_first"], mesh)
+    long_h = timed("long horizon", phase_long_horizon)
     slice9_launches = {name: dict(
         launches_odoslam=slice9["odoslam"][f"k{i}_launches"],
         launches_distortion=slice9["distortion"][f"k{i}_launches"],
         launches_blackout={f: v[f"k{i}_launches"] for f, v in slice9["blackout"].items()})
         for i, name in ((1, "k1"), (2, "k2"), (3, "k3"))}
+    slice10_launches = {name: dict(
+        launches_soak=long_h["soak"]["run"][f"k{i}_launches"],
+        launches_drift_draw=long_h["drift"][f"k{i}_launches"])
+        for i, name in ((1, "k1"), (2, "k2"), (3, "k3"))}
+    slice10_launches["k1"]["launches_tri_accuracy"] = long_h["tri"]["k1_launches"]
     slice6 = {name: {f"launches_{p}": v[f"k{i}_launches"] for p, v in (
         ("dataset", data), ("live_chunked", live["chunked"]), ("live_pipelined", live["pipelined"]),
         ("merge_mapping", merge["mapping"]), ("merge", merge["runs"][0]))}
@@ -3138,6 +3400,7 @@ def main():
         launches_mesh_session=mesh_run["run"]["k1_launches"],
         launches_harris=slice8["harris"]["k1_launches"],
         launches_harris_batch=slice8["harris"]["k1_launches_batch"], **slice9_launches["k1"],
+        **slice10_launches["k1"], soak_frame=long_h["soak"]["k1"],
     )
     loc, glob = ts[LOCAL_BA_SHAPE], ts[GLOBAL_BA_SHAPE]
     schur_kernel = dict(
@@ -3166,6 +3429,10 @@ def main():
         mini_ba=dict(ts[MINI_BA_SHAPE], shape_KM=MINI_BA_SHAPE),
         mini_ba_real=slice8["mini_ba"]["k3"], **slice9_launches["k3"],
         f7={name: dict(v, ms=median(v["ms"])) for name, v in slice9["f7"].items()},
+        **slice10_launches["k3"], soak_k3_shapes_KM=long_h["soak"]["run"]["k3_shapes"],
+        soak_joint_launches=long_h["soak"]["run"]["k3_joint_launches"],
+        soak_joint=dict(long_h["soak"]["joint"], shape_KM=SOAK_JOINT),
+        soak_local_ba=dict(long_h["soak"]["local"], shape_KM=SOAK_LOCAL_BA),
     )
     match_kernel = dict(
         name="windowed_top2", route="cuda", source="se2lam_tpu_torch/csrc/windowed_top2.cu",
@@ -3184,6 +3451,7 @@ def main():
         launches_live_localizer=child["live"]["localizer"]["k2_launches"], **slice6["k2"],
         launches_mesh_solvers=mesh_solvers["k2_launches"],
         launches_mesh_session=mesh_run["run"]["k2_launches"], **slice9_launches["k2"],
+        **slice10_launches["k2"], soak_insertion=long_h["soak"]["k2"],
     )
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [kernel, schur_kernel, match_kernel]}), flush=True)

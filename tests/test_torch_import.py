@@ -44,6 +44,10 @@ import se2lam_tpu_torch.drivers.run_localization, se2lam_tpu_torch.drivers.merge
 import se2lam_tpu_torch.drivers.make_dataset, se2lam_tpu_torch.drivers.serve_live
 import se2lam_tpu_torch.drivers.feed_live, se2lam_tpu_torch.drivers.fleet_demo
 import se2lam_tpu_torch.drivers.evaluate_ate
+import se2lam_tpu_torch.drivers.study_drift, se2lam_tpu_torch.drivers.soak_bank_scale
+import se2lam_tpu_torch.drivers.study_noise, se2lam_tpu_torch.drivers.study_pcg_precond
+import se2lam_tpu_torch.drivers.study_pg_calib, se2lam_tpu_torch.drivers.study_tri_accuracy
+import se2lam_tpu_torch.drivers.study_vocab_scale, se2lam_tpu_torch.drivers.study_noloop_debug
 for name in se2lam_tpu_torch._LAZY:
     getattr(se2lam_tpu_torch, name)
 for name in ("receive_odo", "receive_img", "_maybe_step", "receive_odo_data", "receive_img_data",
@@ -204,6 +208,20 @@ def _run_dataset_driver():
         run_dataset.main(["--synthetic", "--frames", "1", "--out", d])
 
 
+def _drift_run_slam():
+    from se2lam_tpu_torch.drivers import study_drift
+    from se2lam_tpu_torch.io import SyntheticWorld
+    cfg = study_drift.build_cfg()
+    world = SyntheticWorld(cfg, n_landmarks=600, room=10.0, seed=4)
+    gt = study_drift.lap_sequence(world, 1.0, 90)[:2]
+    study_drift.run_slam(cfg, world, gt, world.odometry(gt, seed=3), True, 90)
+
+
+def _soak_run():
+    from se2lam_tpu_torch.drivers import soak_bank_scale
+    soak_bank_scale.run(soak_bank_scale.parse_args(["--laps", "1"]))
+
+
 def _make_mesh():
     from se2lam_tpu_torch.parallel import make_mesh
     make_mesh(2)
@@ -230,13 +248,15 @@ def _serve_live_driver():
                                   _localizer, _load_map, _batch_extractor, _fleet_tracker,
                                   _fleet_localizer, _merge_maps, _merge_many, _measure_rtt,
                                   _run_dataset_driver, _serve_live_driver, _make_mesh,
-                                  _dryrun_multichip, _init_distributed],
+                                  _dryrun_multichip, _init_distributed, _drift_run_slam,
+                                  _soak_run],
                          ids=["entry", "extractor", "camera", "convert", "empty_map",
                               "slam_system", "default_slam_system", "loop_closer",
                               "localizer", "load_map", "batch_extractor", "fleet_tracker",
                               "fleet_localizer", "merge_maps", "merge_many", "measure_rtt",
                               "run_dataset_driver", "serve_live_driver", "make_mesh",
-                              "dryrun_multichip", "init_distributed"])
+                              "dryrun_multichip", "init_distributed", "drift_run_slam",
+                              "soak_run"])
 def test_device_none_means_cuda_and_raises_without_it(make):
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: device=None runs there")

@@ -189,3 +189,42 @@ def test_the_odoslam_surface_is_there():
                  "receive_img_data", "get_current_vehicle_pose", "request_finish",
                  "wait_for_finish"):
         assert have.get(f"SlamSystem.{name}") == "def", name
+
+
+# the studies and the soak of examples/ and their drivers in the port
+STUDIES = ("study_drift", "soak_bank_scale", "study_noise", "study_pcg_precond",
+           "study_pg_calib", "study_tri_accuracy", "study_vocab_scale", "study_noloop_debug")
+# the port's own options: the device, and the mesh's blocks on one device
+# (the JAX study took its device count from XLA_FLAGS)
+PORT_OPTIONS = {"--device", "--blocks"}
+
+
+def _arguments(path):
+    """{option: (default, nargs, type, action)} of a script's
+    ``add_argument`` calls, read with ``ast``."""
+    out = {}
+    for node in ast.walk(ast.parse(path.read_text())):
+        if (isinstance(node, ast.Call) and isinstance(node.func, ast.Attribute)
+                and node.func.attr == "add_argument"):
+            kw = {k.arg: k.value for k in node.keywords}
+            out[node.args[0].value] = tuple(
+                ast.literal_eval(kw[k]) if k in kw and k != "type" else
+                (kw[k].id if k in kw else None) for k in ("default", "nargs", "type", "action"))
+    return out
+
+
+@pytest.mark.parametrize("name", STUDIES)
+def test_study_drivers_keep_the_scripts_options(name):
+    """Each driver has its JAX script's options with their defaults,
+    counts and types; only the port's own options are added, and ``--out``
+    points under ``artifacts/torch_*`` where the script wrote a directory."""
+    want = _arguments(ROOT / "examples" / f"{name}.py")
+    have = _arguments(PORT_PKG / "drivers" / f"{name}.py")
+    assert "--device" in have
+    assert set(have) - PORT_OPTIONS == set(want), sorted(set(have) ^ set(want))
+    for opt, spec in want.items():
+        if opt == "--out" and spec[0]:
+            assert have[opt][0].startswith("artifacts/torch_"), have[opt]
+            assert have[opt][1:] == spec[1:], opt
+        else:
+            assert have[opt] == spec, (opt, have[opt], spec)
