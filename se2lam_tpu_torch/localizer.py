@@ -39,6 +39,14 @@ Two more feeds give ``process``'s tracked flags and poses:
 
 ``host_reads`` counts the tracked path's decision reads (a frame, a chunk
 run, a resolved frame); relocalization reads are not counted.
+
+Spans (``utils.timing``): ``loc.build`` (the constructor), ``loc.frame``
+(``process``, around its extraction and its call of ``process_features``;
+count ``tracked``) holding ``loc.extract``, ``loc.step`` (the tracked step
+and its read; count ``ok``) with ``loc.match`` and ``loc.solve`` (in
+``_localize_step_sums``, so every feed records them), and ``loc.reloc``
+(counts ``candidates``, the candidates tried, and ``ok``) with
+``loc.verify`` and ``loc.refine``.
 """
 from __future__ import annotations
 
@@ -65,6 +73,7 @@ from .solver.poseonly import solve_pose_only
 from .tracking import chunk_frame
 from .utils.chunking import check_chunk, stack_images
 from .utils.prefetch import host_prefetch
+from .utils.timing import span
 from .vocab import Vocabulary
 
 __all__ = ["Localizer"]
@@ -121,10 +130,12 @@ def _localize_step(ms: MapState, pose, last_odom, feats: OrbFeatures, odo,
 def _localize_step_sums(ms, pose, last_odom, feats, odo, min_matches, cfg):
     c = tracking.constants(cfg, pose.device)
     pred = se2.compose(pose, se2.minus(odo, last_odom))
-    feat_match, n = _project_and_match(ms, feats, pred, cfg)
+    with span("loc.match"):
+        feat_match, n = _project_and_match(ms, feats, pred, cfg)
     m = feat_match.clamp(min=0).long()
-    new_pose, _chi, n_in = solve_pose_only(
-        pred, ms.mp_pos[m], feats.xy, feat_match >= 0, c["cam"], c["Tcb"], iters=30)
+    with span("loc.solve"):
+        new_pose, _chi, n_in = solve_pose_only(
+            pred, ms.mp_pos[m], feats.xy, feat_match >= 0, c["cam"], c["Tcb"], iters=30)
     n_covis = _covis_kf_count(ms, feat_match)
     ok = (n >= min_matches) & (n_in >= min_matches) & (n_covis > 0)
     return torch.where(ok, new_pose, pred), ok
@@ -202,6 +213,8 @@ class Localizer:
     ``device=None`` means CUDA and raises without a card; the map and the
     vocabulary are moved to the device. The relocalization RANSAC draws
     from ``generator`` (seeded 7 when not given) or from ``reloc_gumbel``.
+    Span ``loc.build``: the map, the vocabulary and its bank put on the
+    device and the extractor built.
     """
 
     def __init__(
@@ -215,35 +228,36 @@ class Localizer:
         device=None,
         generator: torch.Generator | None = None,
     ):
-        dev = self.device = resolve_device(device)
-        self.cfg = cfg
-        self.ms = MapState(*(t.to(dev) for t in ms))
-        self.vocab = None if vocab is None else Vocabulary(*(t.to(dev) for t in vocab))
-        self.reloc_min_score = reloc_min_score
-        self.reloc_min_inliers = reloc_min_inliers
-        self.min_tracked_matches = min_tracked_matches
+        with span("loc.build"):
+            dev = self.device = resolve_device(device)
+            self.cfg = cfg
+            self.ms = MapState(*(t.to(dev) for t in ms))
+            self.vocab = None if vocab is None else Vocabulary(*(t.to(dev) for t in vocab))
+            self.reloc_min_score = reloc_min_score
+            self.reloc_min_inliers = reloc_min_inliers
+            self.min_tracked_matches = min_tracked_matches
 
-        self.orb_cfg = OrbConfig(
-            height=cfg.height, width=cfg.width, n_features=cfg.cap.n_features,
-            scale_factor=cfg.scale_factor, n_levels=cfg.max_level,
-        )
-        self._extract = OrbExtractor(self.orb_cfg, device=dev)
-        c = tracking.constants(cfg, dev)
-        self._cam, self._Tcb = c["cam"], c["Tcb"]
-        self._undistort = any(abs(d) > 0 for d in cfg.dist)
+            self.orb_cfg = OrbConfig(
+                height=cfg.height, width=cfg.width, n_features=cfg.cap.n_features,
+                scale_factor=cfg.scale_factor, n_levels=cfg.max_level,
+            )
+            self._extract = OrbExtractor(self.orb_cfg, device=dev)
+            c = tracking.constants(cfg, dev)
+            self._cam, self._Tcb = c["cam"], c["Tcb"]
+            self._undistort = any(abs(d) > 0 for d in cfg.dist)
 
-        if self.vocab is not None:
-            ms_ = self.ms
-            self.bank, _ = vocab_mod.bow_transform(
-                self.vocab, ms_.kf_desc, ms_.kf_feat_valid & ms_.kf_valid[:, None])
-        else:
-            self.bank = None
-            # without a vocabulary there is no relocalization path, so a
-            # cold start can never localize: the caller must seed
-            warnings.warn(
-                "Localizer built without a vocabulary: call set_pose(pose, odo) to "
-                "seed tracking, or pass the map's vocabulary to enable BoW "
-                "relocalization.", stacklevel=2)
+            if self.vocab is not None:
+                ms_ = self.ms
+                self.bank, _ = vocab_mod.bow_transform(
+                    self.vocab, ms_.kf_desc, ms_.kf_feat_valid & ms_.kf_valid[:, None])
+            else:
+                self.bank = None
+                # without a vocabulary there is no relocalization path, so a
+                # cold start can never localize: the caller must seed
+                warnings.warn(
+                    "Localizer built without a vocabulary: call set_pose(pose, odo) to "
+                    "seed tracking, or pass the map's vocabulary to enable BoW "
+                    "relocalization.", stacklevel=2)
 
         if generator is None:
             generator = torch.Generator(device=dev).manual_seed(7)
@@ -259,7 +273,6 @@ class Localizer:
         # pipelined feed: in-flight [feats, odo, pose copy or None, ok, copy]
         self._pipe = deque()
         self.pipeline_depth = 4
-        self._in_resolve = False
 
     def set_pose(self, pose, odo):
         """Seed the tracked state directly (a known start pose, or a map
@@ -271,31 +284,43 @@ class Localizer:
     # -- public API --
 
     def extract(self, img) -> OrbFeatures:
-        if not torch.is_tensor(img):
-            img = torch.from_numpy(np.asarray(img))
-        feats = self._extract(img.to(self.device))
-        if self._undistort:
-            feats = feats._replace(xy=undistort_points(self._cam, feats.xy))
-        return feats
+        with span("loc.extract"):
+            if not torch.is_tensor(img):
+                img = torch.from_numpy(np.asarray(img))
+            feats = self._extract(img.to(self.device))
+            if self._undistort:
+                feats = feats._replace(xy=undistort_points(self._cam, feats.xy))
+            return feats
 
     def process(self, img, odo) -> np.ndarray | None:
         """Localize one (image, odometry) pair: the body pose (3,) in the
         map's gauge, or None while lost."""
-        return self.process_features(self.extract(img), odo)
+        self._drain_pipe()   # a mixed-mode caller: frames stay in order
+        with span("loc.frame") as s:
+            # through process_features: the benchmark's fault tests replace it
+            pose = self.process_features(self.extract(img), odo)
+            s.count("tracked", self.trajectory[-1][2])
+            return pose
 
     def process_features(self, feats: OrbFeatures, odo) -> np.ndarray | None:
-        if self._pipe and not self._in_resolve:
-            self._drain_pipe()   # a mixed-mode caller: frames stay in order
-        dev = self.device
-        odo = torch.as_tensor(odo, dtype=torch.float32).to(dev)
+        """``process`` on extracted features, inside its ``loc.frame``;
+        called alone, it opens the stages' spans without a frame."""
+        self._drain_pipe()
+        return self._localize(feats, odo)
 
+    def _localize(self, feats: OrbFeatures, odo) -> np.ndarray | None:
+        """The tracked step, or the lost path where it fails or tracking
+        is lost."""
+        odo = torch.as_tensor(odo, dtype=torch.float32).to(self.device)
         if not self.lost and self.pose is not None:
-            pose_dev, ok_dev = _localize_step(
-                self.ms, torch.as_tensor(self.pose).to(dev), self.last_odom, feats, odo,
-                self.min_tracked_matches, self.cfg)
-            # ONE host read: the pose and the decision together
-            self.host_reads += 1
-            vals = _step_vals(pose_dev, ok_dev).cpu().numpy()
+            with span("loc.step") as st:
+                pose_dev, ok_dev = _localize_step(
+                    self.ms, torch.as_tensor(self.pose).to(self.device), self.last_odom, feats,
+                    odo, self.min_tracked_matches, self.cfg)
+                # ONE host read: the pose and the decision together
+                self.host_reads += 1
+                vals = _step_vals(pose_dev, ok_dev).cpu().numpy()
+                st.count("ok", vals[3] > 0)
             if vals[3] > 0:
                 self._accept(vals[:3], odo, tracked=True)
                 return self.pose.copy()
@@ -371,7 +396,7 @@ class Localizer:
     def _pipe_resolve_one(self):
         feats, odo, pose_dev, copy = self._pipe.popleft()
         if pose_dev is None:
-            return self._resolve_host(feats, odo)
+            return self._localize(feats, odo)
         self.host_reads += 1
         vals = copy.get()[0]
         if vals[3] > 0:
@@ -388,13 +413,6 @@ class Localizer:
                 for e in self._pipe:       # still lost: the host path, in order
                     e[2] = e[3] = None
         return out
-
-    def _resolve_host(self, feats: OrbFeatures, odo):
-        self._in_resolve = True
-        try:
-            return self.process_features(feats, odo)
-        finally:
-            self._in_resolve = False
 
     def _pipe_replay(self):
         base_pose = torch.as_tensor(self.pose).to(self.device)
@@ -475,19 +493,24 @@ class Localizer:
         hit can be a sparse early keyframe when a runner-up verifies."""
         if self.bank is None:
             return None
-        v, _ = vocab_mod.bow_transform(self.vocab, feats.desc_pm1, feats.valid)
-        scores = vocab_mod.bow_score(self.bank, v)
-        scores = torch.where(self.ms.kf_valid, scores, torch.full_like(scores, float("-inf")))
-        top_scores, top_cands = top_k(scores, min(3, scores.shape[0]))
-        # one read for all candidates
-        top = torch.stack([top_scores.double(), top_cands.double()]).cpu().numpy()
-        for score, cand in top.T:
-            if score < self.reloc_min_score:
-                break
-            pose = self._relocalize_at(int(cand), feats)
-            if pose is not None:
-                return pose
-        return None
+        with span("loc.reloc") as s:
+            v, _ = vocab_mod.bow_transform(self.vocab, feats.desc_pm1, feats.valid)
+            scores = vocab_mod.bow_score(self.bank, v)
+            scores = torch.where(self.ms.kf_valid, scores, torch.full_like(scores, float("-inf")))
+            top_scores, top_cands = top_k(scores, min(3, scores.shape[0]))
+            # one read for all candidates
+            top = torch.stack([top_scores.double(), top_cands.double()]).cpu().numpy()
+            pose, tried = None, 0
+            for score, cand in top.T:
+                if score < self.reloc_min_score:
+                    break
+                tried += 1
+                pose = self._relocalize_at(int(cand), feats)
+                if pose is not None:
+                    break
+            s.count("candidates", tried)
+            s.count("ok", pose is not None)
+            return pose
 
     def _relocalize_at(self, cand: int, feats: OrbFeatures):
         cfg, ms = self.cfg, self.ms
@@ -495,28 +518,32 @@ class Localizer:
             noise = dict(gumbel=torch.as_tensor(self.reloc_gumbel()).to(self.device))
         else:
             noise = dict(generator=self.generator)
-        n_in, mp_idx, uv, pair = _relocalize_verify(
-            ms, cand, feats, n_trials=cfg.cap.ransac_trials, **noise)
-        if int(n_in) < self.reloc_min_inliers:
+        with span("loc.verify"):
+            n_in, mp_idx, uv, pair = _relocalize_verify(
+                ms, cand, feats, n_trials=cfg.cap.ransac_trials, **noise)
+            verified = int(n_in) >= self.reloc_min_inliers
+        if not verified:
             return None
-        # the pose from the direct 2D-3D matches, seeded at the candidate's
-        # pose, then projection-refinement rounds (src/Localizer.cpp:121-140)
-        pose, _chi, n_ok = solve_pose_only(
-            ms.kf_pose[cand], ms.mp_pos[mp_idx.long()], uv, pair, self._cam, self._Tcb,
-            iters=30)
-        if int(n_ok) < self.min_tracked_matches:
-            return None
-        for _ in range(2):
-            feat_match, n = _project_and_match(ms, feats, pose, cfg)
-            if int(n) < self.min_tracked_matches:
-                return None
-            m = feat_match.clamp(min=0).long()
+        with span("loc.refine"):
+            # the pose from the direct 2D-3D matches, seeded at the
+            # candidate's pose, then projection-refinement rounds
+            # (src/Localizer.cpp:121-140)
             pose, _chi, n_ok = solve_pose_only(
-                pose, ms.mp_pos[m], feats.xy, feat_match >= 0, self._cam, self._Tcb,
+                ms.kf_pose[cand], ms.mp_pos[mp_idx.long()], uv, pair, self._cam, self._Tcb,
                 iters=30)
-        if int(n_ok) < self.min_tracked_matches:
-            return None
-        return pose.cpu().numpy()
+            if int(n_ok) < self.min_tracked_matches:
+                return None
+            for _ in range(2):
+                feat_match, n = _project_and_match(ms, feats, pose, cfg)
+                if int(n) < self.min_tracked_matches:
+                    return None
+                m = feat_match.clamp(min=0).long()
+                pose, _chi, n_ok = solve_pose_only(
+                    pose, ms.mp_pos[m], feats.xy, feat_match >= 0, self._cam, self._Tcb,
+                    iters=30)
+            if int(n_ok) < self.min_tracked_matches:
+                return None
+            return pose.cpu().numpy()
 
     def save_trajectory(self, path: str):
         """Per-frame CSV: frame_id, x, y, theta, tracked

@@ -37,6 +37,7 @@ from .ops.topk import top_k
 from .ops.triangulate import check_parallax, triangulate
 from .solver.ba import BAConfig, BAProblem, solve_local_ba
 from .tracking import constants
+from .utils.timing import span
 
 __all__ = [
     "insert_first_kf",
@@ -136,14 +137,15 @@ def insert_and_optimize(ms: MapState, feats: OrbFeatures, pose, odom, ref_kf, ma
     src/LocalMapper.cpp:51-85,304-364). One compiled program in JAX; eager
     ops here.
 
-    Returns (ms, k, view_mp, obs_mask, ba_info)."""
-    ms, k = add_keyframe(ms, feats, pose, odom, ref_kf, match_idx, local_mps,
-                         local_mp_valid, good_prl, pre_meas, pre_cov, cfg)
-    for _ in range(2):
-        ms, _kid = prune_redundant_kf(ms, k, protect=protect, cfg=cfg)
-    ms, ba_info = run_local_ba(ms, k, cfg)
-    view_mp, obs_mask = kf_track_seed(ms, k)
-    return ms, k, view_mp, obs_mask, ba_info
+    Returns (ms, k, view_mp, obs_mask, ba_info). Span ``slam.insert``."""
+    with span("slam.insert"):
+        ms, k = add_keyframe(ms, feats, pose, odom, ref_kf, match_idx, local_mps,
+                             local_mp_valid, good_prl, pre_meas, pre_cov, cfg)
+        for _ in range(2):
+            ms, _kid = prune_redundant_kf(ms, k, protect=protect, cfg=cfg)
+        ms, ba_info = run_local_ba(ms, k, cfg)
+        view_mp, obs_mask = kf_track_seed(ms, k)
+        return ms, k, view_mp, obs_mask, ba_info
 
 
 def _append_obs(ms: MapState, mp_idx, kf, feat_idx, active):
@@ -880,16 +882,17 @@ def build_local_ba(ms: MapState, cur_kf, cfg: SystemConfig) -> LocalWindow:
 def run_local_ba(ms: MapState, cur_kf, cfg: SystemConfig):
     """Local BA + write-back (LocalMapper::localBA + Map::optimizeLocalGraph,
     src/LocalMapper.cpp:232-302, src/Map.cpp:754-783). Returns
-    (MapState, info)."""
-    c = constants(cfg, ms.kf_pose.device)
-    win = build_local_ba(ms, cur_kf, cfg)
-    ba_cfg = BAConfig(iters=cfg.local_iter, huber_delta=float(cfg.th_huber2) ** 0.5)
-    poses, points, info = solve_local_ba(win.prob, c["cam"], c["Tcb"], ba_cfg)
-    free = win.kf_sel & ~win.prob.pose_fixed
-    return ms._replace(
-        kf_pose=_scatter(ms.kf_pose, torch.where(free, win.win_kf, ms.K), poses),
-        mp_pos=_scatter(ms.mp_pos, torch.where(win.mp_sel, win.win_mp, ms.M), points),
-    ), info
+    (MapState, info). Span ``map.local_ba``."""
+    with span("map.local_ba"):
+        c = constants(cfg, ms.kf_pose.device)
+        win = build_local_ba(ms, cur_kf, cfg)
+        ba_cfg = BAConfig(iters=cfg.local_iter, huber_delta=float(cfg.th_huber2) ** 0.5)
+        poses, points, info = solve_local_ba(win.prob, c["cam"], c["Tcb"], ba_cfg)
+        free = win.kf_sel & ~win.prob.pose_fixed
+        return ms._replace(
+            kf_pose=_scatter(ms.kf_pose, torch.where(free, win.win_kf, ms.K), poses),
+            mp_pos=_scatter(ms.mp_pos, torch.where(win.mp_sel, win.win_mp, ms.M), points),
+        ), info
 
 
 def local_obs_chi2(ms: MapState, cur_kf, cfg: SystemConfig):

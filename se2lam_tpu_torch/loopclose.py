@@ -55,6 +55,7 @@ from .solver.posegraph import PoseGraphProblem, solve_pose_graph
 from .solver.poseonly import solve_pose_only
 from .solver.sparsifier import marginalize_pair_constraint
 from .tracking import constants
+from .utils.timing import span
 
 __all__ = [
     "LoopCloser", "kf_features", "verify_loop", "build_loop_constraint_ba",
@@ -241,15 +242,16 @@ def verify_and_build_batch(ms: MapState, k, cands, cfg: SystemConfig, n_trials: 
     slots (pre-clipped to the valid range; the caller gates invalid ones).
     ``gumbel``: (C, n_trials, N) RANSAC noise, instead of ``generator``.
     Returns (midx (C,N), n_kp (C,), n_mp (C,), n_cur (C,), meas (C,3),
-    info (C,3,3), n_good (C,))."""
-    outs = []
-    for c in range(cands.shape[0]):
-        noise = (dict(generator=generator) if gumbel is None else dict(gumbel=gumbel[c]))
-        cand = cands[c]
-        midx, n_kp, n_mp, n_cur = verify_loop(ms, k, cand, n_trials, **noise)
-        meas, info, n_good, _ = build_loop_constraint(ms, k, cand, midx, cfg)
-        outs.append((midx, n_kp, n_mp, n_cur, meas, info, n_good))
-    return tuple(torch.stack(x) for x in zip(*outs))
+    info (C,3,3), n_good (C,)). Span ``loop.verify``."""
+    with span("loop.verify"):
+        outs = []
+        for c in range(cands.shape[0]):
+            noise = (dict(generator=generator) if gumbel is None else dict(gumbel=gumbel[c]))
+            cand = cands[c]
+            midx, n_kp, n_mp, n_cur = verify_loop(ms, k, cand, n_trials, **noise)
+            meas, info, n_good, _ = build_loop_constraint(ms, k, cand, midx, cfg)
+            outs.append((midx, n_kp, n_mp, n_cur, meas, info, n_good))
+        return tuple(torch.stack(x) for x in zip(*outs))
 
 
 def select_feat_pairs(ms: MapState, k, hops: int = 5, max_cands: int = N_FEAT_CANDS):
@@ -590,57 +592,72 @@ def loop_stage(ms: MapState, k, bank, vocab, last_loop, gba_cooldown, cfg: Syste
     none (the temporal throttle); ``gba_cooldown``: a GBA ran on the last
     keyframe. ``gumbel``: (5, n_trials, N) RANSAC noise. Returns
     (ms, bank, outs): host values fired/cand/k/evicted/n_feat_edges/
-    renewal_gba/cooldown, and tensors midx and last_loop."""
-    K = ms.K
-    dev = ms.kf_pose.device
-    k = torch.as_tensor(k, device=dev).to(_I32)
-    cands = select_feat_pairs(ms, k)
-    if have_vocab:
-        v, _ = vocab_mod.bow_transform(vocab, _row(ms.kf_desc, k), _row(ms.kf_feat_valid, k))
-        bank = _put_row(bank, k, v)
-        eligible = ms.kf_valid & (torch.arange(K, device=dev) <= k - cfg.gm_dcl_min_kfid_offset)
-        best_i, best_s = bow_detect(bank, v, eligible)
-        throttled = (last_loop[1] >= 0) & (k - last_loop[1] < min_between)
-        loop_ok = ~throttled & (best_s >= cfg.gm_dcl_min_score_best)
-        loop_cand = torch.where(loop_ok, best_i.to(_I32), -1)
-    else:
-        loop_cand = torch.full((), -1, dtype=_I32, device=dev)
+    renewal_gba/cooldown, and tensors midx and last_loop.
 
-    vec = torch.cat([cands, loop_cand[None]])
-    midx_b, n_kp_b, n_mp_b, n_cur_b, meas_b, info_b, n_good_b = verify_and_build_batch(
-        ms, k, vec.clamp(min=0), cfg, n_trials, generator=generator, gumbel=gumbel)
+    Spans: ``loop.detect`` through the decision read, then
+    ``loop.correct`` where it runs. The counts of ``loop.detect``:
+    ``verified``, the real candidates among the batched verification's 5
+    slots (an empty slot is verified too, against keyframe 0), ``fired``,
+    ``renewal`` and ``feat_edges``."""
+    with span("loop.detect") as s:
+        K = ms.K
+        dev = ms.kf_pose.device
+        k = torch.as_tensor(k, device=dev).to(_I32)
+        cands = select_feat_pairs(ms, k)
+        if have_vocab:
+            v, _ = vocab_mod.bow_transform(vocab, _row(ms.kf_desc, k), _row(ms.kf_feat_valid, k))
+            bank = _put_row(bank, k, v)
+            eligible = ms.kf_valid & (torch.arange(K, device=dev) <= k - cfg.gm_dcl_min_kfid_offset)
+            best_i, best_s = bow_detect(bank, v, eligible)
+            throttled = (last_loop[1] >= 0) & (k - last_loop[1] < min_between)
+            loop_ok = ~throttled & (best_s >= cfg.gm_dcl_min_score_best)
+            loop_cand = torch.where(loop_ok, best_i.to(_I32), -1)
+        else:
+            loop_cand = torch.full((), -1, dtype=_I32, device=dev)
 
-    # sparsified feature edges, applied by mask (UpdateFeatGraph,
-    # src/Map.cpp:857-889)
-    n_feat = torch.zeros((), dtype=_I32, device=dev)
-    for c in range(cands.shape[0]):
-        ok_c = (vec[c] >= 0) & (n_mp_b[c] >= 10) & (n_good_b[c] >= 10)
-        ms = add_ftr_edge(ms, vec[c].clamp(min=0), k, meas_b[c], info_b[c], active=ok_c)
-        n_feat = n_feat + ok_c.to(_I32)
+        vec = torch.cat([cands, loop_cand[None]])
+        midx_b, n_kp_b, n_mp_b, n_cur_b, meas_b, info_b, n_good_b = verify_and_build_batch(
+            ms, k, vec.clamp(min=0), cfg, n_trials, generator=generator, gumbel=gumbel)
 
-    n_kp, n_mp, n_cur, n_good = n_kp_b[-1], n_mp_b[-1], n_cur_b[-1], n_good_b[-1]
-    fire = ((loop_cand >= 0)
-            & (n_mp >= cfg.gm_vcl_num_min_match_mp)
-            & (n_kp >= cfg.gm_vcl_num_min_match_kp)
-            & (n_mp.to(torch.float32)
-               >= cfg.gm_vcl_ratio_min_match_mp * torch.clamp(n_cur, min=1).to(torch.float32))
-            & (n_good >= cfg.gm_vcl_num_min_match_mp))
-    evicted = fire & ms.ftr_valid.all()
-    # the feat-graph-renewal GlobalBA (src/GlobalMapper.cpp:87-147)
-    renew = ~fire & (n_feat > 0) & (not gba_cooldown)
-    # the one host read of the keyframe's decisions
-    fired, renewal, ev, cand_h, k_h, n_feat_h = (
-        int(x) for x in torch.stack([fire.to(_I32), renew.to(_I32), evicted.to(_I32),
-                                     loop_cand, k, n_feat]).cpu())
+        # sparsified feature edges, applied by mask (UpdateFeatGraph,
+        # src/Map.cpp:857-889)
+        n_feat = torch.zeros((), dtype=_I32, device=dev)
+        for c in range(cands.shape[0]):
+            ok_c = (vec[c] >= 0) & (n_mp_b[c] >= 10) & (n_good_b[c] >= 10)
+            ms = add_ftr_edge(ms, vec[c].clamp(min=0), k, meas_b[c], info_b[c], active=ok_c)
+            n_feat = n_feat + ok_c.to(_I32)
+
+        n_kp, n_mp, n_cur, n_good = n_kp_b[-1], n_mp_b[-1], n_cur_b[-1], n_good_b[-1]
+        fire = ((loop_cand >= 0)
+                & (n_mp >= cfg.gm_vcl_num_min_match_mp)
+                & (n_kp >= cfg.gm_vcl_num_min_match_kp)
+                & (n_mp.to(torch.float32)
+                   >= cfg.gm_vcl_ratio_min_match_mp * torch.clamp(n_cur, min=1).to(torch.float32))
+                & (n_good >= cfg.gm_vcl_num_min_match_mp))
+        evicted = fire & ms.ftr_valid.all()
+        # the feat-graph-renewal GlobalBA (src/GlobalMapper.cpp:87-147)
+        renew = ~fire & (n_feat > 0) & (not gba_cooldown)
+        # the one host read of the keyframe's decisions
+        fired, renewal, ev, cand_h, k_h, n_feat_h, n_ver = (
+            int(x) for x in torch.stack([fire.to(_I32), renew.to(_I32), evicted.to(_I32),
+                                         loop_cand, k, n_feat, (vec >= 0).sum(dtype=_I32)]).cpu())
+        s.count("verified", n_ver)
+        s.count("fired", fired)
+        s.count("renewal", renewal)
+        s.count("feat_edges", n_feat_h)
     cand_c = max(cand_h, 0)
     midx = midx_b[-1]
-    if fired:
-        ms = add_ftr_edge(ms, cand_c, k, meas_b[-1], info_b[-1], evict_if_full=True)
-        ms = merge_loop_mps(ms, k, cand_c, midx)
     if fired or renewal:
-        ms, _ = run_global_ba(ms, iters=gba_iters, huber=cfg.gm_pg_huber)
-        if fired and joint_iters > 0:
-            ms, _ = run_global_ba_joint(ms, cfg, iters=joint_iters)
+        with span("loop.correct"):
+            if fired:
+                with span("loop.merge"):
+                    ms = add_ftr_edge(ms, cand_c, k, meas_b[-1], info_b[-1], evict_if_full=True)
+                    ms = merge_loop_mps(ms, k, cand_c, midx)
+            with span("loop.pose_graph"):
+                ms, _ = run_global_ba(ms, iters=gba_iters, huber=cfg.gm_pg_huber)
+            if fired and joint_iters > 0:
+                with span("loop.joint_ba"):
+                    ms, _ = run_global_ba_joint(ms, cfg, iters=joint_iters)
     new_last = (torch.tensor([cand_c, k_h], dtype=_I32, device=dev) if fired
                 else torch.as_tensor(last_loop, device=dev).to(_I32))
     outs = dict(fired=bool(fired), cand=cand_h, k=k_h, evicted=bool(ev), n_feat_edges=n_feat_h,
@@ -715,7 +732,6 @@ class LoopCloser:
         self._last_loop_host: tuple[int, int] | None = None
         self._last_loop_dev = torch.tensor([-1, -1], dtype=_I32, device=self.device)
         self.last_loop_midx = None   # (N,) loop→cur feature matches
-        self.last_global_ba_info: dict | None = None
         # host reads of the staged pipeline's last keyframe (its want tuples)
         self.last_kf_pulls = 0
 
@@ -856,7 +872,7 @@ class LoopCloser:
             # the feat-graph-renewal GlobalBA (src/GlobalMapper.cpp:142-147),
             # else the cooldown clears (:151-155)
             if feat_renewed and not self._gba_cooldown:
-                ms, self.last_global_ba_info = global_ba(ms)
+                ms, _ = global_ba(ms)
                 self._gba_cooldown = True
                 self.n_renewal_gbas += 1
                 return ms, True
@@ -878,19 +894,16 @@ class LoopCloser:
         midx = pending["midx_b"][-1]
         ms = add_ftr_edge(ms, loop_cand, k, meas_b[-1], info_b[-1], evict_if_full=True)
         ms = merge_loop_mps(ms, k, loop_cand, midx)
-        ms, gba_info = global_ba(ms)
+        ms, _ = global_ba(ms)
         if cfg.gm_joint_ba_iters > 0:
             if self._dist:
-                ms, joint = run_global_ba_joint_dist(ms, cfg, self.mesh,
-                                                     iters=cfg.gm_joint_ba_iters)
+                ms, _ = run_global_ba_joint_dist(ms, cfg, self.mesh, iters=cfg.gm_joint_ba_iters)
             else:
-                ms, joint = run_global_ba_joint(ms, cfg, iters=cfg.gm_joint_ba_iters)
-            gba_info = {**gba_info, "joint": joint}
+                ms, _ = run_global_ba_joint(ms, cfg, iters=cfg.gm_joint_ba_iters)
         self.n_loops_closed += 1
         self._gba_cooldown = True
         self.last_loop = (loop_cand, k)
         self.last_loop_midx = midx
-        self.last_global_ba_info = gba_info
         return ms, None, True
 
     def adopt_vocab(self, vocab, ms: MapState):
@@ -924,12 +937,13 @@ class LoopCloser:
         if n_inserts < self.min_kfs_to_train:
             return self.vocab is not None
         # (re)train on all live keyframes, one document per keyframe
-        K, N = ms.K, ms.N
-        valid = (ms.kf_feat_valid & ms.kf_valid[:, None]).reshape(-1)
-        doc_ids = torch.arange(K, dtype=_I32, device=ms.kf_desc.device).repeat_interleave(N)
-        self.adopt_vocab(vocab_mod.train_vocab(ms.kf_desc.reshape(-1, 256), valid,
-                                               n_words=self.n_words, doc_ids=doc_ids,
-                                               n_docs_cap=K, generator=self.generator), ms)
+        with span("loop.vocab"):
+            K, N = ms.K, ms.N
+            valid = (ms.kf_feat_valid & ms.kf_valid[:, None]).reshape(-1)
+            doc_ids = torch.arange(K, dtype=_I32, device=ms.kf_desc.device).repeat_interleave(N)
+            self.adopt_vocab(vocab_mod.train_vocab(ms.kf_desc.reshape(-1, 256), valid,
+                                                   n_words=self.n_words, doc_ids=doc_ids,
+                                                   n_docs_cap=K, generator=self.generator), ms)
         self._trained_at_nkf = n_inserts
         self.n_vocab_trainings += 1
         return True

@@ -64,11 +64,37 @@ system's device, which must be the mesh's first.
 
 ``host_reads`` counts the control reads: one per decision read (a frame, a
 chunk segment, a resolved in-flight frame) and one per keyframe insertion.
+
+The stages open spans of ``utils.timing`` (recorded while a
+``torch.profiler`` session records or inside ``timing.tracing()``; a flag
+read otherwise), each inside the one above it:
+
+- ``slam.frame`` (``process``/``process_features``; count ``keyframe``):
+  ``slam.extract``, ``slam.track`` (the noise draw, ``track_frame`` and the
+  decision read), ``slam.relief`` (either capacity relief), ``slam.insert``
+  (``localmap.insert_and_optimize``, holding ``map.local_ba``),
+  ``slam.loop`` (the loop stage) and ``slam.reseed`` (tracking reset on
+  the new keyframe and its read);
+- inside ``slam.loop`` (``loopclose``): ``loop.vocab`` (a vocabulary
+  training), ``loop.detect`` (through the stage's decision read, holding
+  ``loop.verify``; counts ``verified``, the real candidates among the
+  verification's 5 slots, ``fired``, ``renewal``, ``feat_edges``) and,
+  where a closure or a renewal runs, ``loop.correct`` with ``loop.merge``,
+  ``loop.pose_graph`` and ``loop.joint_ba``;
+- the ``Localizer``'s (``localizer.py``): ``loc.build``, ``loc.frame``
+  (``Localizer.process``; count ``tracked``) with ``loc.extract``,
+  ``loc.step`` (count ``ok``; ``loc.match``, ``loc.solve``) and
+  ``loc.reloc`` (counts ``candidates``, ``ok``; ``loc.verify``,
+  ``loc.refine``).
+
+The stages' spans sit in the shared functions, so the chunked and
+pipelined feeds record them too, without a frame around them; a feed
+resolves the frames of another feed still in flight before it opens its
+own frame. ``timing.RECORDER.report()`` sums each span's counts.
 """
 from __future__ import annotations
 
 import os
-import time
 from collections import deque
 
 import numpy as np
@@ -87,6 +113,7 @@ from .ops import se2
 from .ops.camera import CameraModel, undistort_points
 from .utils.chunking import check_chunk, stack_images
 from .utils.prefetch import HostCopy, host_prefetch
+from .utils.timing import span
 from .vocab import train_vocab
 
 __all__ = ["SlamSystem"]
@@ -174,7 +201,6 @@ class SlamSystem:
         self._frame_anchors: list[tuple[int, int, np.ndarray]] = []
         self._ref_kf_host = 0
         self._ref_pose_host = np.zeros(3, np.float32)
-        self.timings: dict[str, float] = {}
         self.n_local_ba = 0
         self.log_ba = False
         self.ba_log: list[dict] = []
@@ -309,12 +335,13 @@ class SlamSystem:
     # -- main synchronous step --
 
     def extract(self, img) -> OrbFeatures:
-        if not torch.is_tensor(img):
-            img = torch.from_numpy(np.asarray(img))
-        feats = self._extract(img.to(self.device))
-        if self._undistort:
-            feats = feats._replace(xy=undistort_points(self._cam, feats.xy))
-        return feats
+        with span("slam.extract"):
+            if not torch.is_tensor(img):
+                img = torch.from_numpy(np.asarray(img))
+            feats = self._extract(img.to(self.device))
+            if self._undistort:
+                feats = feats._replace(xy=undistort_points(self._cam, feats.xy))
+            return feats
 
     def _draw_noise(self):
         """The next tracked frame's RANSAC noise: the one draw every feed
@@ -344,10 +371,24 @@ class SlamSystem:
         of drawing from the generator."""
         if self._viz_dir is not None:
             self._last_img = img
-        return self.process_features(self.extract(img), odo, gumbel=gumbel)
+        self._drain_pipe()   # a mixed-mode caller: frames stay in order
+        with span("slam.frame") as s:
+            return self._frame(s, self.extract(img), odo, gumbel)
 
     def process_features(self, feats: OrbFeatures, odo, gumbel=None) -> np.ndarray:
-        self._drain_pipe()   # a mixed-mode caller: frames stay in order
+        self._drain_pipe()
+        with span("slam.frame") as s:
+            return self._frame(s, feats, odo, gumbel)
+
+    def _frame(self, s, feats: OrbFeatures, odo, gumbel) -> np.ndarray:
+        """One frame inside its ``slam.frame`` span ``s``: ``_step``, and
+        the span's ``keyframe`` count."""
+        fid = self.frame_id
+        pose = self._step(feats, odo, gumbel)
+        s.count("keyframe", bool(self.kf_frame_ids) and self.kf_frame_ids[-1] == fid)
+        return pose
+
+    def _step(self, feats: OrbFeatures, odo, gumbel) -> np.ndarray:
         cfg, dev = self.cfg, self.device
         odo = torch.as_tensor(odo, dtype=torch.float32).to(dev)
         zero = torch.zeros(3, dtype=torch.float32, device=dev)
@@ -377,15 +418,14 @@ class SlamSystem:
             self.frame_id += 1
             return pose
 
-        t0 = time.perf_counter()
-        gumbel = (self._draw_noise() if gumbel is None
-                  else torch.as_tensor(gumbel, dtype=torch.float32).to(dev))
-        self.ts, res = tracking.track_frame(self.ts, feats, odo, cfg, gumbel=gumbel)
-        # ONE host read per frame for the control decisions and the pose
-        vals = self._read(self._decisions(res.need_kf, res.pose))
+        with span("slam.track"):
+            gumbel = (self._draw_noise() if gumbel is None
+                      else torch.as_tensor(gumbel, dtype=torch.float32).to(dev))
+            self.ts, res = tracking.track_frame(self.ts, feats, odo, cfg, gumbel=gumbel)
+            # ONE host read per frame for the control decisions and the pose
+            vals = self._read(self._decisions(res.need_kf, res.pose))
         need_kf, pose = bool(vals[0]), vals[1:4].copy()
         n_kf, n_mp = int(vals[4]), int(vals[5])
-        self.timings["track"] = time.perf_counter() - t0
         return self._apply_frame_decisions(need_kf, pose, n_kf, n_mp, feats, odo)
 
     def _apply_frame_decisions(self, need_kf, pose, n_kf, n_mp,
@@ -428,36 +468,37 @@ class SlamSystem:
         cfg, ts = self.cfg, self.ts
         # protect: the outgoing tracking reference — recent frames'
         # anchors point at it
-        t0 = time.perf_counter()
         self.ms, k, view_mp, obs_mask, ba_info = localmap.insert_and_optimize(
             self.ms, feats, ts.cur_pose, odo, ts.ref_kf_idx, ts.match_idx,
             ts.local_mps, ts.local_mp_valid, ts.good_prl, ts.pre_meas, ts.pre_cov,
             self._ref_kf_host, cfg,
         )
         self.n_local_ba += 1
-        self.timings["insert"] = time.perf_counter() - t0
         lc = self._loop_closer
+        reseed = False
         if lc is not None:
-            t0 = time.perf_counter()
-            if lc._dist and self.async_mapping:
-                # mesh path: dispatch the staged stage's detection; its
-                # values ride the next control reads (_advance_loop)
-                self._loop_pending = lc.start_async(self.ms, k)
-                self._loop_copy = host_prefetch(*self._loop_pending["want"])
-            else:
-                # the closure (if any) lands before tracking reseeds on the
-                # new keyframe
-                self.ms = (lc.on_new_kf(self.ms, k) if lc._dist
-                           else lc.on_new_kf_fused(self.ms, k))
-                view_mp, obs_mask = localmap.kf_track_seed(self.ms, k)
-            self.timings["loop"] = time.perf_counter() - t0
+            with span("slam.loop"):
+                if lc._dist and self.async_mapping:
+                    # mesh path: dispatch the staged stage's detection; its
+                    # values ride the next control reads (_advance_loop)
+                    self._loop_pending = lc.start_async(self.ms, k)
+                    self._loop_copy = host_prefetch(*self._loop_pending["want"])
+                else:
+                    # the closure (if any) lands before tracking reseeds on
+                    # the new keyframe
+                    self.ms = (lc.on_new_kf(self.ms, k) if lc._dist
+                               else lc.on_new_kf_fused(self.ms, k))
+                    reseed = True
 
-        # reset tracking against the (BA-refined) new reference KF
-        # (Track::resetLocalTrack, src/Track.cpp:195-209)
-        new_ref_pose = localmap._row(self.ms.kf_pose, k)
-        self.ts = tracking.init_track_state(feats, new_ref_pose, odo, k, view_mp, obs_mask)
+        with span("slam.reseed"):
+            if reseed:
+                view_mp, obs_mask = localmap.kf_track_seed(self.ms, k)
+            # reset tracking against the (BA-refined) new reference KF
+            # (Track::resetLocalTrack, src/Track.cpp:195-209)
+            new_ref_pose = localmap._row(self.ms.kf_pose, k)
+            self.ts = tracking.init_track_state(feats, new_ref_pose, odo, k, view_mp, obs_mask)
+            vals = self._read(torch.cat([k.to(torch.float32)[None], new_ref_pose]))
         self.kf_frame_ids.append(self.frame_id)
-        vals = self._read(torch.cat([k.to(torch.float32)[None], new_ref_pose]))
         self._ref_kf_host = int(vals[0])
         self._ref_pose_host = vals[1:4].copy()
         # the fired frame became the keyframe: anchor it on its own slot
@@ -593,9 +634,7 @@ class SlamSystem:
         self.ts = ts_new
         if self._viz_dir is not None:
             self._last_img = img
-        t0 = time.perf_counter()
         vals = self._read(copy)
-        self.timings["track"] = time.perf_counter() - t0
         pose = self._apply_frame_decisions(bool(vals[0]), vals[1:4].copy(), int(vals[4]),
                                            int(vals[5]), feats, odo)
         if self._pipe and self.ts is not ts_new:
@@ -690,7 +729,6 @@ class SlamSystem:
         poses_out: list[np.ndarray] = []
         i = 0
         while i < kk:
-            t0 = time.perf_counter()
             if i == 0 and first_seg is not None:
                 ts_f, steps, copy = first_seg
                 vals = self._read(copy)
@@ -701,7 +739,6 @@ class SlamSystem:
             n = odo_stack.shape[0]
             needs_h, poses_h = vals[:n] > 0, vals[n:4 * n].reshape(n, 3)
             n_kf, n_mp = int(vals[4 * n]), int(vals[4 * n + 1])
-            self.timings["track"] = time.perf_counter() - t0
             fire = next((j for j in range(i, kk) if needs_h[j]), None)
             upto = kk if fire is None else fire + 1
             for j in range(i, upto):
@@ -791,26 +828,27 @@ class SlamSystem:
         was freed: mapping pauses, tracking coasts on odometry."""
         # a pending loop stage holds slot ids: it lands first
         self._finish_loop_pending()
-        cfg = self.cfg
-        target = cfg.cap.max_kfs - max(1, cfg.cap.max_kfs // 8)
-        # the live count: holes left by per-insert pruning may suffice
-        n_valid = int(self.ms.kf_valid.sum())
-        for ratio in (0.8, 0.7, 0.6, 0.0):
-            while n_valid > target:
-                for _ in range(3):
-                    self.ms, _ = localmap.prune_redundant_kf(
-                        self.ms, self._ref_kf_host, protect=self._ref_kf_host, cfg=cfg,
-                        min_ratio=ratio)
-                new_valid = int(self.ms.kf_valid.sum())
-                if new_valid == n_valid:
-                    break                 # no progress at this bar
-                n_valid = new_valid
-            if n_valid <= target:
-                break
-        self._compact_and_remap()
-        freed = int(self.ms.n_kf) < cfg.cap.max_kfs
-        self.capacity_compactions += int(freed)
-        self.at_capacity = not freed
+        with span("slam.relief"):
+            cfg = self.cfg
+            target = cfg.cap.max_kfs - max(1, cfg.cap.max_kfs // 8)
+            # the live count: holes left by per-insert pruning may suffice
+            n_valid = int(self.ms.kf_valid.sum())
+            for ratio in (0.8, 0.7, 0.6, 0.0):
+                while n_valid > target:
+                    for _ in range(3):
+                        self.ms, _ = localmap.prune_redundant_kf(
+                            self.ms, self._ref_kf_host, protect=self._ref_kf_host, cfg=cfg,
+                            min_ratio=ratio)
+                    new_valid = int(self.ms.kf_valid.sum())
+                    if new_valid == n_valid:
+                        break                 # no progress at this bar
+                    n_valid = new_valid
+                if n_valid <= target:
+                    break
+            self._compact_and_remap()
+            freed = int(self.ms.n_kf) < cfg.cap.max_kfs
+            self.capacity_compactions += int(freed)
+            self.at_capacity = not freed
 
     def _compact_and_remap(self):
         """Renumber keyframe and point slots (``localmap.compact_map``) and
@@ -832,10 +870,11 @@ class SlamSystem:
         cfg = self.cfg
         M = cfg.cap.max_mps
         target = max(M // 4, M - max(cfg.cap.n_features, M // 8))
-        n_mp_before = self.ms.n_mp
-        self.ms, n_culled = localmap.relieve_mp_pressure(self.ms, target, self._ref_kf_host)
-        culled, reclaimed = (int(x) for x in torch.stack(
-            [n_culled, n_mp_before - self.ms.n_mp]).cpu())
+        with span("slam.relief"):
+            n_mp_before = self.ms.n_mp
+            self.ms, n_culled = localmap.relieve_mp_pressure(self.ms, target, self._ref_kf_host)
+            culled, reclaimed = (int(x) for x in torch.stack(
+                [n_culled, n_mp_before - self.ms.n_mp]).cpu())
         self.mp_culled_weak += culled
         self.mp_slots_reclaimed += reclaimed
         self.mp_compactions += 1
