@@ -22,7 +22,7 @@ import torch
 from ..ops.fixed_order import contract, matmul, rows_matvec, rows_vecmat, sum_points
 from ..ops.linalg import inv_psd_small
 
-__all__ = ["FundamentalResult", "ransac_fundamental", "draw_gumbel"]
+__all__ = ["FundamentalResult", "ransac_fundamental", "draw_gumbel", "skip_gumbel"]
 
 
 class FundamentalResult(NamedTuple):
@@ -102,11 +102,22 @@ def _sampson(F, p1, p2):
     )
 
 
+def _exponential(generator: torch.Generator, shape, dtype):
+    e = torch.empty(shape, dtype=dtype, device=generator.device)
+    return e.exponential_(generator=generator)
+
+
 def draw_gumbel(generator: torch.Generator, shape, dtype=torch.float32):
     """Standard Gumbel noise −log(E), E ~ Exp(1), drawn from ``generator``
     on its device."""
-    e = torch.empty(shape, dtype=dtype, device=generator.device)
-    return -torch.log(e.exponential_(generator=generator))
+    return -torch.log(_exponential(generator, shape, dtype))
+
+
+def skip_gumbel(generator: torch.Generator, shape, dtype=torch.float32):
+    """Advance ``generator`` past one ``draw_gumbel`` of ``shape``: the
+    same exponential draw (one launch), not transformed; later draws are
+    then those that follow the skipped one."""
+    _exponential(generator, shape, dtype)
 
 
 def ransac_fundamental(

@@ -8,7 +8,8 @@ keyframe.
 
 One host read per tracked frame brings back the keyframe decision, the
 pose and the map's keyframe and point counts; a keyframe insertion adds
-one for the new reference slot and pose, and the loop stage one for its
+one for the new reference slot and pose, and the loop stage two: which of
+its candidate slots are filled (only those are verified), then its
 decisions. (The JAX package defers the insertion's read to the next
 frame's, to hide a remote chip's round trip; the anchors and
 ``corrected_trajectory()`` come out the same.)
@@ -77,8 +78,9 @@ read otherwise), each inside the one above it:
   the new keyframe and its read);
 - inside ``slam.loop`` (``loopclose``): ``loop.vocab`` (a vocabulary
   training), ``loop.detect`` (through the stage's decision read, holding
-  ``loop.verify``; counts ``verified``, the real candidates among the
-  verification's 5 slots, ``fired``, ``renewal``, ``feat_edges``) and,
+  ``loop.verify``, which counts ``live``, the slots it verified; counts
+  ``verified``, the real candidates among the 5 slots, ``fired``,
+  ``renewal``, ``feat_edges``) and,
   where a closure or a renewal runs, ``loop.correct`` with ``loop.merge``,
   ``loop.pose_graph`` and ``loop.joint_ba``;
 - the ``Localizer``'s (``localizer.py``): ``loc.build``, ``loc.frame``

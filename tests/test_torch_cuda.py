@@ -521,6 +521,80 @@ def test_loop_stage_on_card(card, small_map):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("loop_live", [False, True], ids=["no_live_slot", "loop_slot_live"])
+def test_loop_stage_verifies_only_live_slots_on_card(card, small_map, monkeypatch, loop_live):
+    """``loop_stage`` on the card, RANSAC drawing from a generator on the
+    card, at the newest keyframe with no feature-pair partner: the same
+    map, bank, decisions, loop-slot matches and generator state as the
+    same call verifying every slot, bitwise. With the loop candidate
+    throttled no slot is live, and ``loop.verify`` starts at most 20
+    kernels (the dead slots' draws) where verifying the 5 slots starts
+    thousands; with the BoW score gate at 0 the loop slot is live and
+    verified after the 4 dead slots' draws (the match gate, out of reach,
+    keeps the closure from running)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from se2lam_tpu_torch import loopclose, vocab as vocab_mod
+    from se2lam_tpu_torch.mapstate import MapState
+    from se2lam_tpu_torch.utils import timing
+
+    cfg, slam = small_map
+    ms = MapState(*(t.to(card) for t in slam.ms))
+    k = max(j for j in range(ms.K) if bool(ms.kf_valid[j])
+            and bool((loopclose.select_feat_pairs(ms, j) < 0).all()))
+    last_loop = [0, k]
+    if loop_live:
+        last_loop = [-1, -1]
+        cfg = cfg.replace(gm_dcl_min_score_best=0.0, gm_dcl_min_kfid_offset=2,
+                          gm_vcl_num_min_match_mp=10 ** 6)
+    valid = (ms.kf_feat_valid & ms.kf_valid[:, None]).reshape(-1)
+    vocab = vocab_mod.train_vocab(ms.kf_desc.reshape(-1, 256), valid, n_words=256,
+                                  seed_idx=torch.nonzero(valid)[:256, 0])
+    bank, _ = vocab_mod.bow_transform(vocab, ms.kf_desc, ms.kf_feat_valid & ms.kf_valid[:, None])
+    orig_batch = loopclose.verify_and_build_batch
+
+    def run():
+        gen = torch.Generator(device=card).manual_seed(23)
+        torch.cuda.synchronize()
+        timing.RECORDER.reset()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            out = loopclose.loop_stage(
+                ms, k, bank, vocab, torch.tensor(last_loop, dtype=torch.int32, device=card),
+                False, cfg, n_trials=cfg.cap.ransac_trials, gba_iters=cfg.global_iter,
+                joint_iters=cfg.gm_joint_ba_iters, min_between=5, generator=gen)
+            torch.cuda.synchronize()
+        (verify,) = timing.RECORDER.records("loop.verify")
+        starts = [e.start_ns() for e in prof.profiler.kineto_results.events()
+                  if e.device_type() == DeviceType.CUDA
+                  and not e.name().startswith(("Memcpy", "Memset"))]
+        n_kernels = sum(verify.start_ns <= t <= verify.end_ns for t in starts)
+        return out, gen.get_state(), verify.counts["live"], n_kernels
+
+    (ms_cut, bank_cut, out_cut), state_cut, live, kernels_cut = run()
+    monkeypatch.setattr(loopclose, "verify_and_build_batch",
+                        lambda *a, live=None, **kw: orig_batch(*a, **kw))
+    (ms_all, bank_all, out_all), state_all, live_all, kernels_all = run()
+
+    assert live == int(loop_live) == int(out_all["cand"] >= 0) and live_all == 5
+    assert not out_all["fired"]
+    for f in MapState._fields:
+        assert torch.equal(getattr(ms_cut, f), getattr(ms_all, f)), f
+    assert torch.equal(bank_cut, bank_all)
+    assert torch.equal(state_cut, state_all)
+    for name, v in out_all.items():
+        if name == "midx":
+            want = v if out_all["cand"] >= 0 else torch.full_like(v, -1)
+            assert torch.equal(out_cut[name], want)
+        elif torch.is_tensor(v):
+            assert torch.equal(out_cut[name], v), name
+        else:
+            assert out_cut[name] == v, name
+    if not loop_live:
+        assert kernels_cut <= 20 and kernels_all >= 1000, (kernels_cut, kernels_all)
+
+
+@pytest.mark.cuda
 def test_stage_timer_synchronises_the_card(card, monkeypatch):
     """``StageTimer(block=True)`` waits for the devices of a timed call's
     output before it stops the clock, and only then; ``measure_rtt`` reads

@@ -388,6 +388,84 @@ def test_loop_closer_state_import_and_stage(lap):
     _assert_tables_equal(tms2, jms)
 
 
+def _stage_inputs(lap, dead):
+    """The stage's inputs at the closing keyframe, or (``dead``) at the
+    newest keyframe up to it with no feature-pair partner, throttled so
+    that it has no loop candidate either: no slot to verify."""
+    r, tms, tcfg = _closure_inputs(lap)
+    k, last_loop = r["k"], torch.from_numpy(r["last_loop"])
+    if dead:
+        k = max(j for j in range(k + 1) if bool(tms.kf_valid[j])
+                and bool((tlc.select_feat_pairs(tms, j) < 0).all()))
+        last_loop = torch.tensor([0, k], dtype=torch.int32)
+    return r, tms, tcfg, k, last_loop
+
+
+@pytest.mark.parametrize("noise", ["gumbel", "generator"])
+@pytest.mark.parametrize("dead", [False, True], ids=["closing", "no_live_slot"])
+def test_loop_stage_verifies_only_live_slots(lap, monkeypatch, dead, noise):
+    """``loop_stage`` verifies only the slots that hold a candidate, and
+    returns what it returns when every slot is verified (the same call with
+    the live list ignored): the same map, bank, decisions and generator
+    state, bitwise; the match indices, read only after a closure, are the
+    loop slot's where it is live and -1 where it is not."""
+    from se2lam_tpu_torch.utils import timing
+
+    r, tms, tcfg, k, last_loop = _stage_inputs(lap, dead)
+    kw = r["kw"]
+    gumbel = _jax_stage_noise(r, lap["cfg"])
+    orig_batch, orig_verify = tlc.verify_and_build_batch, tlc.verify_loop
+    calls = []
+
+    def counted_verify(*a, **kw_):
+        calls.append(1)
+        return orig_verify(*a, **kw_)
+
+    monkeypatch.setattr(tlc, "verify_loop", counted_verify)
+
+    def run():
+        gen = torch.Generator().manual_seed(23)
+        draws = dict(gumbel=gumbel) if noise == "gumbel" else dict(generator=gen)
+        calls.clear()
+        timing.RECORDER.reset()
+        with timing.tracing() as rec:
+            out = tlc.loop_stage(
+                tms, k, torch.from_numpy(np.asarray(r["bank"])),
+                vocabulary_from_numpy(_np(r["vocab"]), "cpu"), last_loop, r["cooldown"], tcfg,
+                n_trials=kw["n_trials"], gba_iters=kw["gba_iters"],
+                joint_iters=kw["joint_iters"], min_between=kw["min_between"],
+                have_vocab=kw["have_vocab"], **draws)
+        (verify,) = rec.records("loop.verify")
+        (detect,) = rec.records("loop.detect")
+        return out, gen.get_state(), len(calls), verify.counts["live"], detect.counts["verified"]
+
+    (ms_cut, bank_cut, out_cut), state_cut, n_cut, live, verified = run()
+    monkeypatch.setattr(tlc, "verify_and_build_batch",
+                        lambda *a, live=None, **kw_: orig_batch(*a, **kw_))
+    (ms_all, bank_all, out_all), state_all, n_all, live_all, _ = run()
+
+    n_live = int((tlc.select_feat_pairs(tms, k) >= 0).sum()) + int(out_all["cand"] >= 0)
+    assert n_cut == live == verified == n_live and n_all == live_all == 5
+    if dead:
+        assert n_live == 0 and not out_all["fired"]
+    else:
+        assert n_live >= 1 and out_all["cand"] >= 0
+        assert out_all["fired"] or noise == "generator"    # JAX's draws close the loop
+    for f in MapState._fields:
+        assert torch.equal(getattr(ms_cut, f), getattr(ms_all, f)), f
+    assert torch.equal(bank_cut, bank_all)
+    assert torch.equal(state_cut, state_all)
+    assert out_cut.keys() == out_all.keys()
+    for name, v in out_all.items():
+        if name == "midx":
+            want = v if out_all["cand"] >= 0 else torch.full_like(v, -1)
+            assert torch.equal(out_cut[name], want)
+        elif torch.is_tensor(v):
+            assert torch.equal(out_cut[name], v), name
+        else:
+            assert out_cut[name] == v, name
+
+
 def test_n_words_rule_and_warning():
     cfg = _tcfg(_world_cfg())
     assert tlc.LoopCloser(cfg, device="cpu").n_words == 1024
